@@ -1,0 +1,86 @@
+"""Carries state between the numpy layouts of the host model and the int64
+tensors of the device path.
+
+The host side (``bfv.golden`` here, and the JAX package's ``Ciphertext.data``,
+``RelinKeys.data``, ``PublicKey.data``) holds residues as numpy ``uint64``.
+The device path holds the same words as ``torch.int64`` (see
+``ops/modmath.py``); residues are < 2**37, so the reinterpretation changes no
+value.  Engine constants need no carrying: both sides derive them from the
+same ``Params``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .params import Params
+
+
+def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    arr = np.ascontiguousarray(arr, dtype=np.uint64)
+    return torch.from_numpy(arr.view(np.int64)).to(device)
+
+
+def _check_residues(arr: np.ndarray, moduli: Sequence[int], what: str):
+    """Every residue of limb row l (axis -2) must be below moduli[l]."""
+    if arr.shape[-2] != len(moduli):
+        raise ValueError(f"{what}: limb axis has {arr.shape[-2]} rows, "
+                         f"expected {len(moduli)}")
+    mods = np.array(moduli, dtype=np.uint64).reshape(-1, 1)
+    if (arr >= mods).any():
+        raise ValueError(f"{what}: residue not below its modulus")
+
+
+def ciphertexts_from_numpy(data, device, params: Optional[Params] = None,
+                           check: bool = False) -> torch.Tensor:
+    """uint64 (B, size, k, n), or a sequence of (size, k, n) arrays of one
+    size, -> int64 tensor (B, size, k, n) on `device`.  With `params`, the
+    shape is validated; with `check` too, every residue is held below its
+    ciphertext modulus."""
+    arr = np.asarray(data if isinstance(data, np.ndarray)
+                     else np.stack([np.asarray(d) for d in data]))
+    if arr.dtype != np.uint64:
+        raise TypeError(f"ciphertexts: expected uint64, got {arr.dtype}")
+    if arr.ndim != 4:
+        raise ValueError("ciphertexts: expected (B, size, k, n), got shape "
+                         f"{arr.shape}")
+    if params is not None:
+        k, n = len(params.ct_moduli), params.n
+        if arr.shape[2:] != (k, n):
+            raise ValueError(f"ciphertexts: expected (B, size, {k}, {n}), "
+                             f"got {arr.shape}")
+        if check:
+            _check_residues(arr, params.ct_moduli, "ciphertexts")
+    elif check:
+        raise ValueError("ciphertexts: check=True needs params")
+    return _to_tensor(arr, device)
+
+
+def relin_keys_from_numpy(data: np.ndarray, device,
+                          params: Optional[Params] = None,
+                          check: bool = False) -> torch.Tensor:
+    """uint64 (k, 2, k_key, n) NTT-form relin keys -> int64 tensor."""
+    arr = np.asarray(data)
+    if arr.dtype != np.uint64:
+        raise TypeError(f"relin keys: expected uint64, got {arr.dtype}")
+    if arr.ndim != 4 or arr.shape[1] != 2:
+        raise ValueError("relin keys: expected (k, 2, k_key, n), got shape "
+                         f"{arr.shape}")
+    if params is not None:
+        want = (len(params.ct_moduli), 2, len(params.key_moduli), params.n)
+        if arr.shape != want:
+            raise ValueError(f"relin keys: expected {want}, got {arr.shape}")
+        if check:
+            _check_residues(arr, params.key_moduli, "relin keys")
+    elif check:
+        raise ValueError("relin keys: check=True needs params")
+    return _to_tensor(arr, device)
+
+
+def to_numpy(x: torch.Tensor) -> np.ndarray:
+    """int64 residue tensor on any device -> numpy uint64 (same words)."""
+    if x.dtype != torch.int64:
+        raise TypeError(f"expected torch.int64, got {x.dtype}")
+    return x.detach().cpu().contiguous().numpy().view(np.uint64)

@@ -1,0 +1,101 @@
+"""Builds the CUDA sources under ``csrc/`` into one shared library and loads
+it with ``ctypes``.
+
+``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into
+``fhe_precompiles_tpu_torch/_build/`` at first use; the file name carries a
+hash of the sources, so an edited source is rebuilt and an unchanged one is
+reused.  The library has a plain C interface (no PyTorch headers, a build of
+seconds); pointers and the stream cross as ``c_void_p``.
+
+Nothing here runs when the module is imported: a machine without ``nvcc``
+can import the package and use the CPU path.  ``load_library`` raises there.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_lib = None
+build_seconds = None        # wall time of the nvcc run, None if reused
+
+
+def _find_nvcc() -> str:
+    cand = shutil.which("nvcc")
+    if cand:
+        return cand
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of fhe_precompiles_tpu_torch are "
+        "built from csrc/ at first use and need the CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _set_argtypes(lib) -> None:
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.fhe_tail_params_size.argtypes = []
+    lib.fhe_tail_params_size.restype = i
+    lib.fhe_tail_limits.argtypes = [ctypes.POINTER(i)]
+    lib.fhe_tail_limits.restype = None
+    lib.fhe_tail_to_bsk_ext.argtypes = [vp, vp, ll, i, vp, vp]
+    lib.fhe_tail_dyadic.argtypes = [vp, vp, vp, ll, i, vp, vp]
+    lib.fhe_tail_floor_sk.argtypes = [vp, vp, ll, i, vp, vp]
+    lib.fhe_tail_relin_dot.argtypes = [vp, vp, vp, ll, i, vp, vp]
+    lib.fhe_tail_mod_down.argtypes = [vp, vp, vp, ll, i, ll, vp, vp]
+    for name in ("to_bsk_ext", "dyadic", "floor_sk", "relin_dot", "mod_down"):
+        getattr(lib, "fhe_tail_" + name).restype = i
+
+
+def load_library(verbose: bool = False):
+    """The loaded kernel library; builds it first if this source state has
+    no build yet.  Raises if there is no ``nvcc`` or the build fails."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    cu, cuh = _sources()
+    if not cu:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    h = hashlib.sha256()
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    so = BUILD_DIR / f"libfhe_tail_{h.hexdigest()[:16]}.so"
+    if not so.is_file():
+        nvcc = _find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC)]
+        if verbose:
+            cmd += ["-Xptxas", "-v"]
+        cmd += ["-o", str(tmp), *map(str, cu)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
+                               + proc.stdout + proc.stderr)
+        if verbose:
+            print(proc.stdout + proc.stderr, flush=True)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    _set_argtypes(lib)
+    _lib = lib
+    return lib
