@@ -15,7 +15,9 @@ failure ends the run with a non-zero exit code and without the last line.
 Then, in this order: the card's name and power limit as ``nvidia-smi`` gives
 them, one ``{"kernels": [...]}`` line (per kernel: launches counted during the
 main-path run, error against the plain version, measured times, and the least
-time the card could take), and the last line
+time the card could take; ``ms`` is taken with the inputs cold in the cache
+and is the time ``bound_ms`` is held against, ``same_buffers_ms`` repeats one
+input set, ``path_ms`` is one call inside ``_mul_relin``), and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 It imports ``fhe_precompiles_tpu_torch`` only, never JAX.
@@ -47,12 +49,23 @@ SEED = 20240607
 
 # Published peaks of one H100 SXM.  Memory: 3.35 TB/s.  The kernels do 64-bit
 # integer arithmetic on the 32-bit integer pipe, which has half the lanes of
-# the float32 pipe (67 TFLOP/s): 33.5e12 integer operations a second with a
-# multiply-add counted as two.  A 64 x 64-bit multiply (either half of the
-# product) is counted as four 32-bit multiply-adds.
+# the float32 pipe (67 TFLOP/s = 33.5e12 multiply-adds a second): 16.75e12
+# 32-bit integer multiply-adds a second.  Operations are counted in those:
+# the high half of a 64 x 64-bit product takes four, the low half three.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_INT32_OPS_PER_S = 33.5e12
-OPS_PER_MUL64 = 8
+PEAK_IMAD_PER_S = 16.75e12
+MULHI, MULLO = 4, 3
+SHOUP = MULHI + 2 * MULLO         # hi(a * ws), a * w, q * p
+BARRETT = MULHI + MULLO           # hi(x * mu), q * p
+# general product kept lazy: hi(a * b), a * b, hi * (2^64 mod p), one Barrett
+# step (2^64 mod p is the same for a whole launch and is not counted)
+MUL_LAZY = MULHI + 2 * MULLO + BARRETT
+MULMOD = MUL_LAZY + BARRETT
+L2_BYTES = 50 * 2 ** 20           # the card's L2 cache
+
+# launches of each kernel in one _mul_relin
+CALLS_PER_MUL_RELIN = {"to_bsk_ext": 2, "dyadic": 1, "floor_sk": 1,
+                       "relin_dot": 1, "mod_down": 1}
 
 SOURCE = "fhe_precompiles_tpu_torch/csrc/tail.cu"
 REPLACES = {
@@ -68,19 +81,65 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def hold_device(ms: float) -> None:
+    """Keeps the card busy for about `ms` milliseconds (a spin kernel on the
+    current stream; 2e6 cycles a millisecond is the card's top clock), so
+    that the host can queue what follows and the card then runs it back to
+    back: event times after it hold no wait for the host."""
+    torch.cuda._sleep(int(ms * 2e6))
+
+
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds of one call, from CUDA events around `reps` calls.
-    Every timed working set here exceeds the 50 MB L2, so calls run cold."""
-    for _ in range(warmup):
-        fn()
+    """Mean milliseconds of one call on the card, from CUDA events around
+    `reps` calls queued behind a spin kernel (0.15 ms of it for each call;
+    the host issues one in 0.02-0.04 ms).  `fn` takes the call's number."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    hold_device(0.15 * reps)
     start.record()
-    for _ in range(reps):
-        fn()
+    for i in range(reps):
+        fn(i)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Mean milliseconds the host needs to issue one call (host clock, the
+    card not waited for)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fn(i)
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e3
+
+
+def same_strides_copy(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty_strided(x.size(), x.stride(), dtype=x.dtype,
+                               device=x.device).copy_(x)
+
+
+def cold_ms(kern, inputs, c, reps: int = 20) -> float:
+    """Mean milliseconds of one launch that finds its inputs cold: the calls
+    rotate through copies of the inputs (same strides) that together hold
+    five times the L2 cache, and each result is kept until its turn comes
+    again, so that no call reads what an earlier one left in the cache.  Two
+    rounds of warm-up, so that the allocator holds every block it needs."""
+    in_bytes = 8 * sum(x.numel() for x in inputs)
+    sets = max(2, -(-5 * L2_BYTES // in_bytes))
+    ring = [inputs] + [tuple(same_strides_copy(x) for x in inputs)
+                       for _ in range(sets - 1)]
+    outs = [None] * sets
+
+    def call(i):
+        outs[i % sets] = kern(*ring[i % sets], c)
+
+    return cuda_ms(call, reps=reps, warmup=2 * sets)
 
 
 def rand_rows(rng, lead, mods, n) -> np.ndarray:
@@ -96,16 +155,20 @@ def dev(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr).view(np.int64)).cuda()
 
 
-def mul64_per_launch(name: str, c: tail.TailConstants, batch: int) -> int:
-    """64-bit multiplies one launch does (csrc/modmath.cuh: Shoup product 3,
-    Barrett step 2, lazy general product 6, full general product 8)."""
+def imads_per_launch(name: str, c: tail.TailConstants, batch: int) -> int:
+    """32-bit multiply-adds the function needs for `batch` ciphertext pairs,
+    counted product by product as csrc/tail.cu forms them.  The m_tilde row
+    of to_bsk_ext multiplies 16-bit values: one each."""
     k, nbsk, nB, kk, n = c.k, c.nbsk, c.nB, c.k_key, c.n
     per_pos = {
-        "to_bsk_ext": 4 * k + 1 + nbsk * (3 * k + 8),
-        "dyadic": 24 * c.nb,
-        "floor_sk": nbsk * (3 * k + 5) + 6 * nB + 5 + k * (3 * nB + 9),
-        "relin_dot": kk * (12 * k + 4),
-        "mod_down": 10 * k,
+        "to_bsk_ext": (k * SHOUP + k + 1
+                       + nbsk * (k * SHOUP + BARRETT + 2 * SHOUP)),
+        "dyadic": c.nb * 3 * MULMOD,
+        "floor_sk": (nbsk * (k * SHOUP + BARRETT + SHOUP) + nB * SHOUP
+                     + nB * SHOUP + BARRETT + SHOUP
+                     + k * (nB * SHOUP + 2 * BARRETT + SHOUP)),
+        "relin_dot": kk * (2 * k * MUL_LAZY + 2 * BARRETT),
+        "mod_down": 2 * k * (BARRETT + SHOUP),
     }[name]
     rows = {"to_bsk_ext": 2 * batch, "floor_sk": 3 * batch}.get(name, batch)
     return per_pos * rows * n
@@ -154,38 +217,45 @@ def compare(kern, plain, inputs, c):
     return got, mism, max_err
 
 
-def phase_kernels(eng: TorchEngine, rng) -> dict:
+def phase_kernels(eng: TorchEngine, rng):
     """Kernel against plain version on the card, at the main path's shapes on
-    testnet.one and at a small batch on bench.n8192 (other limb counts)."""
+    testnet.one and at a small batch on bench.n8192 (other limb counts).
+    Returns the rows of the last ``kernels`` line and, per kernel, the
+    comparison's counts with the two terms of the bound."""
     ctx8 = BfvContext(BENCH_N8192)
     c8 = tail.TailConstants(ctx8, "cuda")
     small = kernel_cases(ctx8, c8, 2, rng)
-    rows = {}
+    rows, checks = {}, {}
     for name, (kern, plain, inputs) in kernel_cases(
             eng.golden, eng.consts, BATCH, rng).items():
         out, mism, max_err = compare(kern, plain, inputs, eng.consts)
         k8, p8, in8 = small[name]
         _, mism8, max_err8 = compare(k8, p8, in8, c8)
         nbytes = io_bytes(inputs, out)
+        imads = imads_per_launch(name, eng.consts, BATCH)
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        ops_ms = (mul64_per_launch(name, eng.consts, BATCH) * OPS_PER_MUL64
-                  / PEAK_INT32_OPS_PER_S * 1e3)
-        ms = cuda_ms(lambda: kern(*inputs, eng.consts))
-        plain_ms = cuda_ms(lambda: plain(*inputs, eng.consts), reps=5,
-                           warmup=1)
+        ops_ms = imads / PEAK_IMAD_PER_S * 1e3
+        del out
         rows[name] = {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": 0,
             "max_abs_err": max(max_err, max_err8),
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": cold_ms(kern, inputs, eng.consts),
+            "plain_ms": cuda_ms(lambda i: plain(*inputs, eng.consts), reps=5,
+                                warmup=1),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
-            "mismatches": mism, "mismatches_n8192": mism8,
-            "kernel_ms": ms, "bytes": nbytes,
-            "bytes_ms": bytes_ms, "operations_ms": ops_ms,
+            "same_buffers_ms": cuda_ms(lambda i: kern(*inputs, eng.consts)),
+            "path_ms": None,
         }
-    return rows
+        checks[name] = {"name": name, "mismatches": mism,
+                        "mismatches_n8192": mism8, "bytes": nbytes,
+                        "imads": imads, "bytes_bound_ms": bytes_ms,
+                        "operations_bound_ms": ops_ms,
+                        "host_issue_ms": host_ms(
+                            lambda i: kern(*inputs, eng.consts))}
+    return rows, checks
 
 
 def negacyclic_mul_mod_t(a: np.ndarray, b: np.ndarray, t: int) -> np.ndarray:
@@ -238,8 +308,8 @@ def phase_main_path(eng: TorchEngine, rows: dict) -> dict:
                           ctx.mul_relin(cts[0], cts[1], pk.relin).data):
         raise AssertionError("single-ciphertext mul_relin differs from the "
                              "host golden model")
-    expected = {"to_bsk_ext": 4, "dyadic": 2, "floor_sk": 2, "relin_dot": 2,
-                "mod_down": 2}
+    # one batched _mul_relin and one single-ciphertext mul_relin
+    expected = {name: 2 * calls for name, calls in CALLS_PER_MUL_RELIN.items()}
     if counts != expected:
         raise AssertionError(f"launch counts {counts}, expected {expected}")
     for name, n_launch in counts.items():
@@ -263,6 +333,7 @@ def staged_mul_relin(eng: TorchEngine, a, b, rk):
         ev.record()
         marks.append((label, ev))
 
+    hold_device(3.0)        # the host queues ahead of the card from here on
     mark("to_bsk_ext")
     ea = tail.to_bsk_ext(a, c)
     mark("torch_ntt")
@@ -312,10 +383,11 @@ def mul_relin_times(eng: TorchEngine, a, b, rk, reps: int):
     return times
 
 
-def phase_timing(eng: TorchEngine, inputs, card: str) -> dict:
+def phase_timing(eng: TorchEngine, inputs, card: str, rows: dict) -> dict:
     """CUDA-event time of ``_mul_relin`` at B = 128 (median of 12), where it
     goes (the plain torch NTTs against the five kernels), and the same call
-    at other batch sizes (median of 5 each)."""
+    at other batch sizes (median of 5 each).  Writes each kernel's time for
+    one call inside the pipeline into `rows`."""
     a, b, rk = inputs
     want = eng._mul_relin(a, b, rk)
     times = mul_relin_times(eng, a, b, rk, 12)
@@ -339,6 +411,8 @@ def phase_timing(eng: TorchEngine, inputs, card: str) -> dict:
                 for label in runs[0]}
     staged_total = sum(stage_ms.values())
     kern_ms = sum(stage_ms[name] for name in tail.KERNEL_NAMES)
+    for name in tail.KERNEL_NAMES:
+        rows[name]["path_ms"] = stage_ms[name] / CALLS_PER_MUL_RELIN[name]
     return {"phase": "timing", "ok": True, "card": card, "batch": BATCH,
             "ms_per_batch_median": batch_ms, "ms_per_batch_all": times,
             "mul_relin_per_s": BATCH / batch_ms * 1e3,
@@ -376,12 +450,10 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     eng = TorchEngine(TESTNET_ONE)            # default device: the card
-    rows = phase_kernels(eng, np.random.default_rng(SEED))
+    rows, checks = phase_kernels(eng, np.random.default_rng(SEED))
     emit({"phase": "kernels", "ok": True, "card": card, "tolerance": 0,
-          "kernels": [{key: r[key] for key in
-                       ("name", "mismatches", "mismatches_n8192", "kernel_ms",
-                        "plain_ms", "bytes")} for r in rows.values()]})
-    bad = [n for n, r in rows.items()
+          "kernels": list(checks.values())})
+    bad = [n for n, r in checks.items()
            if r["mismatches"] or r["mismatches_n8192"]]
     if bad:
         raise AssertionError(f"kernels differ from their plain versions: {bad}")
@@ -389,7 +461,7 @@ def main() -> int:
     main_path = phase_main_path(eng, rows)
     inputs = main_path.pop("inputs")
     emit(main_path)
-    emit(phase_timing(eng, inputs, card))
+    emit(phase_timing(eng, inputs, card, rows))
 
     print(card, flush=True)
     emit({"kernels": list(rows.values())})

@@ -194,7 +194,7 @@ __device__ __forceinline__ void floor_sk_at(const u64* __restrict__ tp,
     u64 alpha = mul_shoup(submod(barrett(acc, msk, msk_mu), x_msk, msk),
                           c.inv_prodB_msk, c.inv_prodB_msk_s, msk);
     const bool big = alpha >= (msk >> 1) + 1;     // alpha stands for alpha - m_sk
-    const u64 m_minus_a = msk - alpha;
+    const u64 mag = big ? msk - alpha : alpha;    // |centred alpha|
 
 #pragma unroll
     for (int i = 0; i < MAX_K; ++i) {
@@ -207,10 +207,10 @@ __device__ __forceinline__ void floor_sk_at(const u64* __restrict__ tp,
                     accq += mul_shoup_lazy(y2[j], c.bhat_q[i][j],
                                            c.bhat_q_s[i][j], p);
             accq = barrett(accq, p, mu);
-            // -(m_sk - alpha) mod q_i: the negation maps 0 to 0, not to q_i
-            u64 neg_in = barrett(m_minus_a, p, mu);
-            u64 neg = neg_in == 0 ? 0 : p - neg_in;
-            u64 am = big ? neg : barrett(alpha, p, mu);
+            // centred alpha mod q_i; the negation of the reduced m_sk - alpha
+            // maps 0 to 0, not to q_i
+            u64 red = barrett(mag, p, mu);
+            u64 am = (big && red != 0) ? p - red : red;
             u64 corr = mul_shoup(am, c.prodB_q[i], c.prodB_q_s[i], p);
             op[(long long)i * n] = submod(accq, corr, p);
         }

@@ -39,9 +39,10 @@ def _dev(arr, device) -> torch.Tensor:
         np.ascontiguousarray(arr, dtype=np.uint64).view(np.int64)).to(device)
 
 
-def build_tables(moduli: Sequence[int], n: int, device="cpu",
+def build_tables(moduli: Sequence[int], n: int, device,
                  n_inv_factors: Optional[Sequence[int]] = None) -> NttTables:
-    """n_inv_factors: optional per-limb constants folded into the inverse
+    """Tables on `device`, which the caller names (there is no default).
+    n_inv_factors: optional per-limb constants folded into the inverse
     transform's n^-1 multiply, so that ``intt`` returns ``factor * x``
     without a separate pass (the engine folds t and t * q_hat_inv there)."""
     tabs = [get_ntt_tables(int(p), n) for p in moduli]

@@ -101,9 +101,10 @@ def _mu(p: int) -> int:
 class TailConstants:
     """The per-limb constants of the five segments for one parameter set,
     derived from the host model's ``BfvContext``: int64 tensors on `device`
-    for the plain versions, and the parameter struct for the kernels."""
+    for the plain versions, and the parameter struct for the kernels.  The
+    caller names the device; there is no default."""
 
-    def __init__(self, ctx: BfvContext, device="cpu"):
+    def __init__(self, ctx: BfvContext, device):
         self.device = torch.device(device)
         k, k_key, n = ctx.k, ctx.k_key, ctx.n
         nB, nbsk = len(ctx.B), len(ctx.Bsk)

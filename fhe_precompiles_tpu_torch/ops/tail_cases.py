@@ -6,7 +6,9 @@ positions of row 0 of a random input so that the m_tilde correction ``r`` of
 ``to_bsk_ext`` and the Shenoy-Kumaresan ``alpha`` of ``floor_sk`` take chosen
 values: both sides of each centring threshold, the extremes, and (where the
 moduli allow it) the ``alpha`` whose reduced negation is zero.  Used by the
-CPU tests and by the on-card comparison of each kernel with its plain version.
+CPU tests and by the on-card comparison of each kernel with its plain version
+(``chip_smoke.py``), which may import nothing but this package; nothing that
+runs at runtime in the package imports this module.
 """
 from __future__ import annotations
 

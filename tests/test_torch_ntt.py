@@ -51,7 +51,7 @@ def _rand(rng, lead, mods, n):
 def test_forward_matches_golden_ntt(stack):
     mods, n = STACKS[stack]
     x = _rand(np.random.default_rng(11), (2, 2), mods, n)
-    got = _np(ntt(_t(x), build_tables(mods, n)))
+    got = _np(ntt(_t(x), build_tables(mods, n, "cpu")))
     for li, p in enumerate(mods):
         want = jax_ntt.ntt(x[..., li, :], jax_tables(int(p), n))
         assert np.array_equal(got[..., li, :], want)
@@ -61,7 +61,7 @@ def test_forward_matches_golden_ntt(stack):
 def test_inverse_matches_golden_intt_and_roundtrips(stack):
     mods, n = STACKS[stack]
     x = _rand(np.random.default_rng(12), (3,), mods, n)
-    tb = build_tables(mods, n)
+    tb = build_tables(mods, n, "cpu")
     got = _np(intt(_t(x), tb))
     for li, p in enumerate(mods):
         want = jax_ntt.intt(x[..., li, :], jax_tables(int(p), n))
@@ -80,7 +80,8 @@ def test_inverse_with_folded_factors(stack):
     factors = ([t * g.q_hat_inv[i] % p for i, p in enumerate(g.q_mods)]
                + [t] * len(g.Bsk))
     x = _rand(np.random.default_rng(13), (2,), mods, n)
-    got = _np(intt(_t(x), build_tables(mods, n, n_inv_factors=factors)))
+    got = _np(intt(_t(x), build_tables(mods, n, "cpu",
+                                        n_inv_factors=factors)))
     for li, p in enumerate(mods):
         plain = jax_ntt.intt(x[..., li, :], jax_tables(int(p), n))
         want = np_mulmod(plain, np.uint64(factors[li]), p)
