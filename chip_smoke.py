@@ -1,23 +1,29 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
+    python3 chip_smoke.py --ptxas    # also prints each kernel's registers
 
-Drives the port's main path -- a batch of 128 ciphertext x ciphertext BFV
-multiplies followed by relinearization on ``testnet.one`` (n = 4096) --
-through ``TorchEngine`` on the card, and checks it byte for byte against the
-port's host golden model.  Before that it builds the CUDA kernels from
-``fhe_precompiles_tpu_torch/csrc/`` and holds each of them against its plain
-PyTorch version on the card (exact integer arithmetic: the tolerance is 0,
-every word must be equal).
+Drives the port's two paths through ``TorchEngine`` on the card, on
+``testnet.one`` (n = 4096) at a batch of 128, and checks each byte for byte
+against the port's host golden model: the main path, ciphertext x ciphertext
+BFV multiplies followed by relinearization, and the round trip, encrypt on
+the card -> multiply + relinearize -> decrypt on the card, with the
+elementwise operations beside it.  Before that it builds the CUDA kernels
+from ``fhe_precompiles_tpu_torch/csrc/`` and holds each of the seven (five
+BEHZ tail segments, forward and inverse NTT) against its plain PyTorch version
+on the card (exact integer arithmetic: the tolerance is 0, every word must be
+equal).
 
-Phases, one JSON line each: device, build, kernels, main_path, timing.  Any
-failure ends the run with a non-zero exit code and without the last line.
-Then, in this order: the card's name and power limit as ``nvidia-smi`` gives
-them, one ``{"kernels": [...]}`` line (per kernel: launches counted during the
-main-path run, error against the plain version, measured times, and the least
-time the card could take; ``ms`` is taken with the inputs cold in the cache
-and is the time ``bound_ms`` is held against, ``same_buffers_ms`` repeats one
-input set, ``path_ms`` is one call inside ``_mul_relin``), and the last line
+Phases, one JSON line each: device, build, kernels, main_path, round_trip,
+timing.  Any failure ends the run with a non-zero exit code and without the
+last line.  Then, in this order: the card's name and power limit as
+``nvidia-smi`` gives them, one ``{"kernels": [...]}`` line (per kernel:
+launches counted during the main-path run and during the round trip, error
+against the plain version, measured times, and the least time the card could
+take; ``ms`` is taken with the inputs cold in the cache and is the time
+``bound_ms`` is held against, ``same_buffers_ms`` repeats one input set,
+``path_ms`` is one call inside ``_mul_relin``, for the NTTs the call of
+the shape that ``ms`` was taken at), and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 It imports ``fhe_precompiles_tpu_torch`` only, never JAX.
@@ -37,14 +43,15 @@ import torch
 from fhe_precompiles_tpu_torch import convert
 from fhe_precompiles_tpu_torch.bfv import BfvContext, Ciphertext
 from fhe_precompiles_tpu_torch.ops import build, tail, tail_cases
+from fhe_precompiles_tpu_torch.ops import ntt as nttm
 from fhe_precompiles_tpu_torch.ops.engine import TorchEngine
 from fhe_precompiles_tpu_torch.ops.modmath import csub_reduce
-from fhe_precompiles_tpu_torch.ops.ntt import intt, ntt
-from fhe_precompiles_tpu_torch.params import BENCH_N8192, TESTNET_ONE
+from fhe_precompiles_tpu_torch.params import (BENCH_N1024, BENCH_N8192,
+                                              TESTNET_ONE)
 
 BATCH = 128          # the main path's batch
 DISTINCT = 8         # distinct ciphertexts, tiled up to BATCH
-SWEEP = (16, 32, 64, 256, 512)   # other batch sizes timed beside BATCH
+SWEEP = (1, 16, 32, 64, 256, 512)   # other batch sizes timed beside BATCH
 SEED = 20240607
 
 # Published peaks of one H100 SXM.  Memory: 3.35 TB/s.  The kernels do 64-bit
@@ -65,16 +72,35 @@ L2_BYTES = 50 * 2 ** 20           # the card's L2 cache
 
 # launches of each kernel in one _mul_relin
 CALLS_PER_MUL_RELIN = {"to_bsk_ext": 2, "dyadic": 1, "floor_sk": 1,
-                       "relin_dot": 1, "mod_down": 1}
+                       "relin_dot": 1, "mod_down": 1, "ntt": 3, "intt": 2}
+# NTT launches of the round trip: encrypt_batch, _mul_relin, _multiply,
+# decrypt_batch of sizes 2 and 3, decrypt of the boundary ciphertext,
+# mul_plain (forward, inverse); the tail kernels run in the two multiplies
+ROUND_TRIP_NTT_CALLS = {
+    "ntt": 1 + 3 + 2 + 1 + 2 + 1 + 2, "intt": 2 + 2 + 1 + 1 + 1 + 1 + 1}
 
-SOURCE = "fhe_precompiles_tpu_torch/csrc/tail.cu"
+CSRC = "fhe_precompiles_tpu_torch/csrc/"
+SOURCES = {name: CSRC + "tail.cu" for name in tail.KERNEL_NAMES}
+SOURCES.update({name: CSRC + "ntt.cu" for name in nttm.KERNEL_NAMES})
 REPLACES = {
     "to_bsk_ext": "fhe_precompiles_tpu/ops/pallas_tail.py:147",
     "dyadic": "fhe_precompiles_tpu/ops/pallas_tail.py:214",
     "floor_sk": "fhe_precompiles_tpu/ops/pallas_tail.py:254",
     "relin_dot": "fhe_precompiles_tpu/ops/pallas_tail.py:353",
     "mod_down": "fhe_precompiles_tpu/ops/pallas_tail.py:415",
+    "ntt": "fhe_precompiles_tpu/ops/pallas_pair_ntt.py:86",
+    "intt": "fhe_precompiles_tpu/ops/pallas_pair_ntt.py:135",
 }
+KERNEL_NAMES = tail.KERNEL_NAMES + nttm.KERNEL_NAMES
+
+
+def reset_launch_counts() -> None:
+    tail.reset_launch_counts()
+    nttm.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    return {**tail.launch_counts, **nttm.launch_counts}
 
 
 def emit(obj) -> None:
@@ -174,9 +200,26 @@ def imads_per_launch(name: str, c: tail.TailConstants, batch: int) -> int:
     return per_pos * rows * n
 
 
+def ntt_imads(name: str, rows: int, n: int) -> int:
+    """32-bit multiply-adds of one transform of `rows` rows, as csrc/ntt.cu
+    forms them: one Shoup product for each of the n/2 * log2(n) butterflies,
+    and for the inverse one more for each word (the n^-1 multiply)."""
+    per_row = n // 2 * (n.bit_length() - 1) * SHOUP
+    if name == "intt":
+        per_row += n * SHOUP
+    return rows * per_row
+
+
+def ntt_table_bytes(name: str, tb: nttm.NttTables) -> int:
+    """The tables one transform reads: the moduli, the twiddles and their
+    Shoup words, and for the inverse n^-1 and its Shoup word."""
+    L = tb.p.shape[0]
+    return 8 * (L + 2 * L * tb.n + (2 * L if name == "intt" else 0))
+
+
 def kernel_cases(ctx: BfvContext, c: tail.TailConstants, batch: int, rng):
-    """For every kernel: (wrapper, plain version, input tensors) at the shapes
-    the multiply path gives it for `batch` ciphertext pairs, with the
+    """For every tail kernel: (wrapper, plain version, input tensors) at the
+    shapes the multiply path gives it for `batch` ciphertext pairs, with the
     hand-placed branch cases in row 0."""
     n, k, kk = ctx.n, ctx.k, ctx.k_key
     q, all_mods, key = ctx.q_mods, ctx.q_mods + ctx.Bsk, ctx.key_mods
@@ -200,6 +243,64 @@ def kernel_cases(ctx: BfvContext, c: tail.TailConstants, batch: int, rng):
     }
 
 
+def ntt_rows(rng, lead, mods, n) -> torch.Tensor:
+    """Uniform canonical residues (*lead, L, n) on the card whose first four
+    (L, n) blocks are all 0, all p - 1, a single 1 at position 0 and a single
+    1 at position n - 1."""
+    x = rand_rows(rng, lead, mods, n)
+    blocks = x.reshape(-1, len(mods), n)
+    blocks[:4] = 0
+    blocks[1] = np.array(mods, dtype=np.uint64).reshape(-1, 1) - np.uint64(1)
+    blocks[2, :, 0] = 1
+    blocks[3, :, n - 1] = 1
+    return dev(x)
+
+
+def ntt_cases(eng: TorchEngine, rng):
+    """Every shape the two paths give the NTT kernels on testnet.one at
+    BATCH, then bench.n8192 (a 64 KB row: dynamic shared memory) and
+    bench.n1024 (a modulus below 2^32) at small batches, and every n from 8
+    to 2048 on the key primes (each cuts its stages into passes differently).
+    The first case of each kernel is the one timed for the last ``kernels``
+    line.
+    (label, kernel name, tables, tables for the way back or None, input)."""
+    g, bz, n = eng.golden, eng.behz, eng.n
+    all_mods = g.q_mods + g.Bsk
+    ct = ntt_rows(rng, (BATCH, 2), g.q_mods, n)
+    cases = [
+        ("prepare q+bsk", "ntt", bz.tb_all, bz.tb_all,
+         ntt_rows(rng, (BATCH, 2), all_mods, n)),
+        ("mul_core q+bsk, t*qhat_inv folded", "intt", bz.tb_all_t, None,
+         ntt_rows(rng, (BATCH, 3), all_mods, n)),
+        ("relinearize key", "ntt", bz.tb_key, bz.tb_key,
+         ntt_rows(rng, (BATCH, g.k), g.key_mods, n)),
+        ("relinearize key", "intt", bz.tb_key, bz.tb_key,
+         ntt_rows(rng, (BATCH, 2), g.key_mods, n)),
+        ("decrypt q, strided ct[:, 1]", "ntt", eng.tb_q, eng.tb_q, ct[:, 1]),
+        ("decrypt q", "intt", eng.tb_q, eng.tb_q,
+         ntt_rows(rng, (BATCH,), g.q_mods, n)),
+    ]
+    for label, params, batch in (("bench.n8192", BENCH_N8192, 2),
+                                 ("bench.n1024", BENCH_N1024, 4)):
+        ctx = BfvContext(params)
+        mods = ctx.q_mods + ctx.Bsk
+        tb = nttm.build_tables(mods, ctx.n, "cuda")
+        tb_t = nttm.build_tables(mods, ctx.n, "cuda",
+                                 n_inv_factors=[params.t] * len(mods))
+        for name, tables, back, what in (
+                ("ntt", tb, tb, " q+bsk"), ("intt", tb_t, None,
+                                            " q+bsk, t folded"),
+                ("intt", tb, tb, " q+bsk")):
+            cases.append((label + what, name, tables, back,
+                          ntt_rows(rng, (batch, 2), mods, ctx.n)))
+    for log2n in range(3, 12):
+        tb = nttm.build_tables(g.key_mods, 1 << log2n, "cuda")
+        for name in nttm.KERNEL_NAMES:
+            cases.append((f"key primes, n = {1 << log2n}", name, tb, tb,
+                          ntt_rows(rng, (4,), g.key_mods, 1 << log2n)))
+    return cases
+
+
 def io_bytes(inputs, out) -> int:
     """Each input word read once, each output word written once."""
     return 8 * (sum(x.numel() for x in inputs) + out.numel())
@@ -217,11 +318,35 @@ def compare(kern, plain, inputs, c):
     return got, mism, max_err
 
 
+def timed_row(name, kern, plain, inputs, c, nbytes, imads, max_err):
+    """One row of the last ``kernels`` line and the two terms of its bound."""
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = imads / PEAK_IMAD_PER_S * 1e3
+    row = {
+        "name": name, "route": "cuda", "source": SOURCES[name],
+        "replaces": REPLACES[name], "launches": 0,
+        "max_abs_err": max_err,
+        "ms": cold_ms(kern, inputs, c),
+        "plain_ms": cuda_ms(lambda i: plain(*inputs, c), reps=5, warmup=1),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+        "same_buffers_ms": cuda_ms(lambda i: kern(*inputs, c)),
+        "path_ms": None, "launches_round_trip": 0,
+    }
+    terms = {"bytes": nbytes, "imads": imads, "bytes_bound_ms": bytes_ms,
+             "operations_bound_ms": ops_ms,
+             "host_issue_ms": host_ms(lambda i: kern(*inputs, c))}
+    return row, terms
+
+
 def phase_kernels(eng: TorchEngine, rng):
-    """Kernel against plain version on the card, at the main path's shapes on
-    testnet.one and at a small batch on bench.n8192 (other limb counts).
-    Returns the rows of the last ``kernels`` line and, per kernel, the
-    comparison's counts with the two terms of the bound."""
+    """Kernel against plain version on the card.  The tail kernels at the
+    main path's shapes on testnet.one and at a small batch on bench.n8192
+    (other limb counts); the NTT kernels at every shape of ``ntt_cases``,
+    and there and back again (``intt(ntt(x)) == x``).  Returns the rows of
+    the last ``kernels`` line and, per kernel, the comparison's counts with
+    the two terms of the bound."""
     ctx8 = BfvContext(BENCH_N8192)
     c8 = tail.TailConstants(ctx8, "cuda")
     small = kernel_cases(ctx8, c8, 2, rng)
@@ -232,29 +357,46 @@ def phase_kernels(eng: TorchEngine, rng):
         k8, p8, in8 = small[name]
         _, mism8, max_err8 = compare(k8, p8, in8, c8)
         nbytes = io_bytes(inputs, out)
-        imads = imads_per_launch(name, eng.consts, BATCH)
-        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        ops_ms = imads / PEAK_IMAD_PER_S * 1e3
         del out
-        rows[name] = {
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": 0,
-            "max_abs_err": max(max_err, max_err8),
-            "ms": cold_ms(kern, inputs, eng.consts),
-            "plain_ms": cuda_ms(lambda i: plain(*inputs, eng.consts), reps=5,
-                                warmup=1),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
-            "same_buffers_ms": cuda_ms(lambda i: kern(*inputs, eng.consts)),
-            "path_ms": None,
-        }
+        rows[name], terms = timed_row(
+            name, kern, plain, inputs, eng.consts, nbytes,
+            imads_per_launch(name, eng.consts, BATCH), max(max_err, max_err8))
         checks[name] = {"name": name, "mismatches": mism,
-                        "mismatches_n8192": mism8, "bytes": nbytes,
-                        "imads": imads, "bytes_bound_ms": bytes_ms,
-                        "operations_bound_ms": ops_ms,
-                        "host_issue_ms": host_ms(
-                            lambda i: kern(*inputs, eng.consts))}
+                        "mismatches_n8192": mism8, **terms}
+
+    kerns = {"ntt": (nttm.ntt, nttm.ntt_plain),
+             "intt": (nttm.intt, nttm.intt_plain)}
+    for label, name, tb, back, x in ntt_cases(eng, rng):
+        kern, plain = kerns[name]
+        out, mism, max_err = compare(kern, plain, (x,), tb)
+        if back is not None:       # there and back with the unfolded tables
+            other = nttm.intt if name == "ntt" else nttm.ntt
+            mism += int((other(out, back) != x).sum().item())
+        n_rows = x.numel() // tb.n
+        case = {"case": label, "shape": list(x.shape),
+                "contiguous": x.is_contiguous(), "mismatches": mism}
+        if name not in rows:       # the first case: the kernels line's row
+            nbytes = io_bytes((x,), out) + ntt_table_bytes(name, tb)
+            del out
+            rows[name], terms = timed_row(
+                name, kern, plain, (x,), tb, nbytes,
+                ntt_imads(name, n_rows, tb.n), max_err)
+            checks[name] = {"name": name, "mismatches": 0, "cases": [],
+                            "max_abs_err": 0, **terms}
+            case["ms"] = rows[name]["ms"]
+        else:
+            del out
+            if tb.n >= 1024:       # the small sizes are held, not timed
+                case["ms"] = cold_ms(kern, (x,), tb)
+        if "ms" in case:
+            case["bytes_bound_ms"] = (
+                (16 * x.numel() + ntt_table_bytes(name, tb))
+                / PEAK_BYTES_PER_S * 1e3)
+        checks[name]["mismatches"] += mism
+        checks[name]["max_abs_err"] = max(checks[name]["max_abs_err"], max_err)
+        checks[name]["cases"].append(case)
+    for name in nttm.KERNEL_NAMES:
+        rows[name]["max_abs_err"] = checks[name].pop("max_abs_err")
     return rows, checks
 
 
@@ -266,21 +408,30 @@ def negacyclic_mul_mod_t(a: np.ndarray, b: np.ndarray, t: int) -> np.ndarray:
     return np.mod(out, t).astype(np.uint64)
 
 
-def phase_main_path(eng: TorchEngine, rows: dict) -> dict:
-    """Keys and ciphertexts from the host model, B = 128 distinct-operand
-    multiply + relinearize on the card, checked against the host golden
-    model and by decryption."""
-    ctx, prm = eng.golden, eng.params
+def make_keys_and_plains(ctx: BfvContext):
+    """Host keygen and DISTINCT small plaintexts (products stay below t)."""
     rng = np.random.default_rng(SEED + 1)
     pk, sk = ctx.generate_keys(seed=b"\x42" * 64)
     plains = np.zeros((DISTINCT, ctx.n), dtype=np.uint64)
     plains[:, :8] = rng.integers(0, 16, size=(DISTINCT, 8), dtype=np.uint64)
-    cts = [ctx.encrypt(plains[i], pk, bytes([i + 1]) * 64)
-           for i in range(DISTINCT)]
+    return pk, sk, plains
+
+
+def seed_of(i: int) -> bytes:
+    return bytes([i + 1]) * 64
+
+
+def phase_main_path(eng: TorchEngine, rows: dict, keys) -> dict:
+    """Keys and ciphertexts from the host model, B = 128 distinct-operand
+    multiply + relinearize on the card, checked against the host golden
+    model and by decryption."""
+    ctx, prm = eng.golden, eng.params
+    pk, sk, plains = keys
+    cts = [ctx.encrypt(plains[i], pk, seed_of(i)) for i in range(DISTINCT)]
     tiled = np.tile(np.stack([c.data for c in cts]),
                     (BATCH // DISTINCT, 1, 1, 1))
 
-    tail.reset_launch_counts()
+    reset_launch_counts()
     a = convert.ciphertexts_from_numpy(tiled, eng.device, prm, check=True)
     b = torch.roll(a, 1, dims=0)              # distinct operands
     rk = convert.relin_keys_from_numpy(pk.relin.data, eng.device, prm,
@@ -288,7 +439,7 @@ def phase_main_path(eng: TorchEngine, rows: dict) -> dict:
     out = eng._mul_relin(a, b, rk)
     single = eng.mul_relin(cts[0], cts[1], pk.relin)
     torch.cuda.synchronize()
-    counts = dict(tail.launch_counts)
+    counts = launch_counts()
 
     if not out.is_cuda or tuple(out.shape) != (BATCH, 2, ctx.k, ctx.n):
         raise AssertionError(f"main path output: {out.device} {out.shape}")
@@ -318,13 +469,153 @@ def phase_main_path(eng: TorchEngine, rows: dict) -> dict:
             "batch": BATCH, "distinct_pairs_checked": DISTINCT,
             "rows_equal_to_golden": BATCH, "decrypt_ok": True,
             "launches": counts, "output_device": str(out.device),
-            "inputs": (a, b, rk)}
+            "inputs": (a, b, rk), "host_cts": cts}
 
 
-def staged_mul_relin(eng: TorchEngine, a, b, rk):
+def boundary_ciphertext(ctx: BfvContext) -> Ciphertext:
+    """A wire-valid ciphertext no encryption produces: c1 = 0, so that the
+    dot product with the secret key is c0 itself, and c0's coefficients are
+    placed on and beside the rounding boundaries of t*x/q."""
+    q, t = ctx.q, ctx.t
+    xs = [0, 1, q - 1, q // 2]
+    for m in (0, 1, 5, t // 2, t - 1, t):
+        base = m * q - q // 2
+        for d in (-1, 0, 1):
+            x = (base + d) // t
+            if 0 <= x < q:
+                xs.append(x)
+    data = np.zeros((2, ctx.k, ctx.n), dtype=np.uint64)
+    for j, p in enumerate(ctx.q_mods):
+        data[0, j, :len(xs)] = [x % p for x in xs]
+    return Ciphertext(ctx.params, data)
+
+
+def call_times(fn, reps: int):
+    """CUDA-event milliseconds of `reps` single calls, each waited for."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def phase_round_trip(eng: TorchEngine, rows: dict, keys, host_cts) -> dict:
+    """Encrypt B = 128 on the card, multiply + relinearize, decrypt on the
+    card: every step against the host golden model.  Then one ciphertext on
+    the rounding boundaries, and one of each elementwise operation."""
+    ctx, prm = eng.golden, eng.params
+    pk, sk, plains = keys
+    reps = BATCH // DISTINCT
+    tiled_plains = np.tile(plains, (reps, 1))
+    seeds = [seed_of(i % DISTINCT) for i in range(BATCH)]
+
+    def same(label, got, want):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"round trip: {label} differs from the host "
+                                 "golden model")
+
+    reset_launch_counts()
+    cts = eng.encrypt_batch(tiled_plains, pk, seeds)
+    if not cts.is_cuda or tuple(cts.shape) != (BATCH, 2, ctx.k, ctx.n):
+        raise AssertionError(f"encrypt_batch output: {cts.device} {cts.shape}")
+    enc = convert.to_numpy(cts)
+    for row in range(BATCH):
+        same(f"encrypt row {row}", enc[row], host_cts[row % DISTINCT].data)
+
+    other = torch.roll(cts, 1, dims=0)
+    rk = convert.relin_keys_from_numpy(pk.relin.data, eng.device, prm)
+    out2 = eng._mul_relin(cts, other, rk)
+    out3 = eng._multiply(cts, other)
+    dec2 = eng.decrypt_batch(out2, sk)
+    dec3 = eng.decrypt_batch(out3, sk)
+    if not dec2.is_cuda or tuple(dec2.shape) != (BATCH, ctx.n):
+        raise AssertionError(f"decrypt_batch output: {dec2.device} "
+                             f"{dec2.shape}")
+    host2, host3 = convert.to_numpy(out2), convert.to_numpy(out3)
+    got2, got3 = convert.to_numpy(dec2), convert.to_numpy(dec3)
+    for i in range(DISTINCT):
+        product = negacyclic_mul_mod_t(plains[i], plains[(i - 1) % DISTINCT],
+                                       prm.t)
+        same(f"size-2 decrypt row {i}", got2[i],
+             ctx.decrypt(Ciphertext(prm, host2[i]), sk))
+        same(f"size-3 decrypt row {i}", got3[i],
+             ctx.decrypt(Ciphertext(prm, host3[i]), sk))
+        for row in range(i, BATCH, DISTINCT):
+            same(f"size-2 product row {row}", got2[row], product)
+            same(f"size-3 product row {row}", got3[row], product)
+
+    edge = boundary_ciphertext(ctx)
+    same("decrypt of the boundary ciphertext", eng.decrypt(edge, sk),
+         ctx.decrypt(edge, sk))
+
+    x, y, m = host_cts[0], host_cts[1], plains[2]
+    for name, args in (("add", (x, y)), ("sub", (x, y)), ("negate", (x,)),
+                       ("add_plain", (x, m)), ("mul_plain", (x, m))):
+        same(name, getattr(eng, name)(*args).data,
+             getattr(ctx, name)(*args).data)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expected = {name: 2 * calls for name, calls in CALLS_PER_MUL_RELIN.items()}
+    expected["mod_down"] = expected["relin_dot"] = 1    # _multiply stops early
+    expected.update(ROUND_TRIP_NTT_CALLS)
+    if counts != expected:
+        raise AssertionError(f"round trip launch counts {counts}, expected "
+                             f"{expected}")
+    for name, n_launch in counts.items():
+        rows[name]["launches_round_trip"] = n_launch
+
+    # times at B = 128, inputs on the card: the device part of encrypt_batch
+    # (everything after the host's sampling and the transfer) and
+    # decrypt_batch as a caller sees it (it carries the secret key across)
+    u, e0, e1 = (convert.from_numpy(r, eng.device)
+                 for r in eng._sample_randomness(seeds))
+    m_dev = convert.plaintexts_from_numpy(tiled_plains, eng.device, prm)
+    pk_ct = convert.public_key_from_numpy(pk.data, eng.device, prm,
+                                          ct_limbs_only=True)
+    if not torch.equal(eng._encrypt_core(u, e0, e1, m_dev, pk_ct), cts):
+        raise AssertionError("_encrypt_core differs from encrypt_batch")
+    t0 = time.perf_counter()
+    eng._sample_randomness(seeds)
+    sampling_ms = (time.perf_counter() - t0) * 1e3
+    enc_ms = call_times(lambda: eng._encrypt_core(u, e0, e1, m_dev, pk_ct), 9)
+    dec2_ms = call_times(lambda: eng.decrypt_batch(out2, sk), 9)
+    dec3_ms = call_times(lambda: eng.decrypt_batch(out3, sk), 9)
+    return {"phase": "round_trip", "ok": True, "preset": "testnet.one",
+            "batch": BATCH, "distinct_checked": DISTINCT,
+            "encrypt_rows_equal_to_golden": BATCH,
+            "decrypt_size2_ok": True, "decrypt_size3_ok": True,
+            "boundary_ciphertext_ok": True,
+            "elementwise_ok": ["add", "sub", "negate", "add_plain",
+                               "mul_plain"],
+            "launches": counts,
+            "encrypt_core_ms_median": statistics.median(enc_ms),
+            "encrypt_core_ms_all": enc_ms,
+            "encrypt_host_sampling_ms": sampling_ms,
+            "decrypt_batch_size2_ms_median": statistics.median(dec2_ms),
+            "decrypt_batch_size2_ms_all": dec2_ms,
+            "decrypt_batch_size3_ms_median": statistics.median(dec3_ms)}
+
+
+# staged_mul_relin's labels of the NTT launches
+NTT_LABELS = ("ntt_all", "ntt_key", "intt_all", "intt_key")
+
+
+def staged_mul_relin(eng: TorchEngine, a, b, rk, ntt=nttm.ntt,
+                     intt=nttm.intt):
     """The steps of ``_mul_relin`` one by one (as ``ops/behz.py`` runs them)
     with a CUDA event before each.  Returns the result and the milliseconds
-    spent under each label."""
+    spent under each label; the NTTs over q and Bsk and those over the key
+    primes have labels of their own, because their launches differ in size.
+    `ntt` / `intt` may be the plain versions, to time the path as it was
+    before the kernels."""
     bz, c = eng.behz, eng.consts
     marks = []
 
@@ -336,25 +627,25 @@ def staged_mul_relin(eng: TorchEngine, a, b, rk):
     hold_device(3.0)        # the host queues ahead of the card from here on
     mark("to_bsk_ext")
     ea = tail.to_bsk_ext(a, c)
-    mark("torch_ntt")
+    mark("ntt_all")
     fa = ntt(ea, bz.tb_all)
     mark("to_bsk_ext")
     eb = tail.to_bsk_ext(b, c)
-    mark("torch_ntt")
+    mark("ntt_all")
     fb = ntt(eb, bz.tb_all)
     mark("dyadic")
     stacked = tail.dyadic(fa, fb, c)
-    mark("torch_ntt")
+    mark("intt_all")
     tq = intt(stacked, bz.tb_all_t)
     mark("floor_sk")
     ct3 = tail.floor_sk(tq, c)
     mark("digit_lift")
     d = csub_reduce(ct3[:, 2, :, None, :], c.key, bz.steps_ct_mod_key)
-    mark("torch_ntt")
+    mark("ntt_key")
     d_ntt = ntt(d, bz.tb_key)
     mark("relin_dot")
     acc_ntt = tail.relin_dot(d_ntt, rk, c)
-    mark("torch_ntt")
+    mark("intt_key")
     acc = intt(acc_ntt, bz.tb_key)
     mark("mod_down")
     out = tail.mod_down(acc, ct3[:, :2], c)
@@ -366,40 +657,28 @@ def staged_mul_relin(eng: TorchEngine, a, b, rk):
     return out, ms
 
 
-def mul_relin_times(eng: TorchEngine, a, b, rk, reps: int):
-    """CUDA-event milliseconds of `reps` single ``_mul_relin`` calls."""
-    for _ in range(2):
-        eng._mul_relin(a, b, rk)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        eng._mul_relin(a, b, rk)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
-
-
 def phase_timing(eng: TorchEngine, inputs, card: str, rows: dict) -> dict:
     """CUDA-event time of ``_mul_relin`` at B = 128 (median of 12), where it
-    goes (the plain torch NTTs against the five kernels), and the same call
-    at other batch sizes (median of 5 each).  Writes each kernel's time for
-    one call inside the pipeline into `rows`."""
+    goes (the two NTT kernels against the five tail kernels), the same batch
+    with the plain NTTs in their place, and the same call at other batch
+    sizes (median of 5 each), with the host's time to issue one call beside
+    it.  Writes each kernel's time for one call inside the pipeline into
+    `rows`."""
     a, b, rk = inputs
     want = eng._mul_relin(a, b, rk)
-    times = mul_relin_times(eng, a, b, rk, 12)
+    times = call_times(lambda: eng._mul_relin(a, b, rk), 12)
     batch_ms = statistics.median(times)
     sweep = {}
-    for size in SWEEP:
+    for size in SWEEP + (BATCH,):
         reps_of_a = -(-size // BATCH)
         xa = a.repeat(reps_of_a, 1, 1, 1)[:size].contiguous()
         xb = torch.roll(xa, 1, dims=0)
-        ms = statistics.median(mul_relin_times(eng, xa, xb, rk, 5))
-        sweep[str(size)] = {"ms_per_batch": ms,
-                            "mul_relin_per_s": size / ms * 1e3}
+        ms = statistics.median(
+            call_times(lambda: eng._mul_relin(xa, xb, rk), 5))
+        sweep[str(size)] = {
+            "ms_per_batch": ms, "mul_relin_per_s": size / ms * 1e3,
+            "host_issue_ms": host_ms(lambda i: eng._mul_relin(xa, xb, rk),
+                                     reps=5)}
 
     runs = []
     for _ in range(5):
@@ -410,16 +689,36 @@ def phase_timing(eng: TorchEngine, inputs, card: str, rows: dict) -> dict:
     stage_ms = {label: statistics.median(r[label] for r in runs)
                 for label in runs[0]}
     staged_total = sum(stage_ms.values())
-    kern_ms = sum(stage_ms[name] for name in tail.KERNEL_NAMES)
+    tail_ms = sum(stage_ms[name] for name in tail.KERNEL_NAMES)
+    ntt_ms = sum(stage_ms[label] for label in NTT_LABELS)
     for name in tail.KERNEL_NAMES:
         rows[name]["path_ms"] = stage_ms[name] / CALLS_PER_MUL_RELIN[name]
+    # the launches of the shapes that the rows' `ms` was taken at: two
+    # forward ones over q and Bsk, one inverse
+    rows["ntt"]["path_ms"] = stage_ms["ntt_all"] / 2
+    rows["intt"]["path_ms"] = stage_ms["intt_all"]
+
+    # the same batch as it ran before the NTT kernels: plain stage loops
+    plain_runs = []
+    for _ in range(3):
+        out, ms = staged_mul_relin(eng, a, b, rk, ntt=nttm.ntt_plain,
+                                   intt=nttm.intt_plain)
+        if not torch.equal(out, want):
+            raise AssertionError("the run with the plain NTTs differs from "
+                                 "_mul_relin")
+        plain_runs.append(ms)
+    plain_total = statistics.median(sum(r.values()) for r in plain_runs)
+    plain_ntt = statistics.median(sum(r[label] for label in NTT_LABELS)
+                                  for r in plain_runs)
     return {"phase": "timing", "ok": True, "card": card, "batch": BATCH,
             "ms_per_batch_median": batch_ms, "ms_per_batch_all": times,
             "mul_relin_per_s": BATCH / batch_ms * 1e3,
-            "other_batch_sizes": sweep,
+            "batch_sizes": sweep,
             "staged_ms": stage_ms, "staged_total_ms": staged_total,
-            "torch_ntt_share": stage_ms["torch_ntt"] / staged_total,
-            "tail_kernels_share": kern_ms / staged_total}
+            "ntt_kernels_share": ntt_ms / staged_total,
+            "tail_kernels_share": tail_ms / staged_total,
+            "plain_ntt_staged_total_ms": plain_total,
+            "plain_ntt_ms": plain_ntt}
 
 
 def main() -> int:
@@ -444,7 +743,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.load_library(verbose="--ptxas" in sys.argv)
-    emit({"phase": "build", "ok": True, "source": SOURCE,
+    emit({"phase": "build", "ok": True,
+          "sources": sorted(set(SOURCES.values())),
           "flags": " ".join(build.NVCC_FLAGS),
           "nvcc_seconds": build.build_seconds,
           "seconds": time.perf_counter() - t0})
@@ -454,17 +754,19 @@ def main() -> int:
     emit({"phase": "kernels", "ok": True, "card": card, "tolerance": 0,
           "kernels": list(checks.values())})
     bad = [n for n, r in checks.items()
-           if r["mismatches"] or r["mismatches_n8192"]]
+           if r["mismatches"] or r.get("mismatches_n8192")]
     if bad:
         raise AssertionError(f"kernels differ from their plain versions: {bad}")
 
-    main_path = phase_main_path(eng, rows)
-    inputs = main_path.pop("inputs")
+    keys = make_keys_and_plains(eng.golden)
+    main_path = phase_main_path(eng, rows, keys)
+    inputs, host_cts = main_path.pop("inputs"), main_path.pop("host_cts")
     emit(main_path)
+    emit(phase_round_trip(eng, rows, keys, host_cts))
     emit(phase_timing(eng, inputs, card, rows))
 
     print(card, flush=True)
-    emit({"kernels": list(rows.values())})
+    emit({"kernels": [rows[name] for name in KERNEL_NAMES]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,10 +1,11 @@
 """Canonical BFV implementation (host golden model, numpy uint64).
 
-The port's own copy of the parts of ``fhe_precompiles_tpu/bfv/golden.py`` that
-the multiply + relinearize path needs: key generation, deterministic
-public-key encryption, decryption, BEHZ full-RNS ciphertext multiplication
-and SEAL-convention relinearization / key switching.  The elementwise
-operations and the noise-budget meter are not part of the port yet.
+The port's own copy of ``fhe_precompiles_tpu/bfv/golden.py``: key generation,
+deterministic public-key encryption, decryption, the noise-budget meter, the
+elementwise operations (SEAL's zero-extension for add/sub included), BEHZ
+full-RNS ciphertext multiplication and SEAL-convention relinearization / key
+switching.  The byte codecs (``to_bytes`` / ``from_bytes``) are not part of
+the port yet.
 
 Every operation here defines the *canonical byte semantics*: the device path
 (fhe_precompiles_tpu_torch.ops) must reproduce these arrays bit-for-bit, and
@@ -307,6 +308,103 @@ class BfvContext:
     def decrypt(self, ct: Ciphertext, sk: SecretKey) -> np.ndarray:
         """Returns the plaintext polynomial mod t (exact CRT scale-and-round)."""
         return self._message_from_dot(self._dot_with_secret(ct, sk))
+
+    def noise_budget_bits(self, ct: Ciphertext, sk: SecretKey) -> float:
+        """log2(q / (2*|noise|)) -- observability metric (SURVEY.md section 5).
+
+        The noise magnitude is computed division-free: noise residues are
+        formed in RNS (dot - round(q*m/t) per limb, all uint64 vectorized),
+        then CRT-composed with 128-bit numpy arithmetic (q < 2**111) and
+        centered -- no per-coefficient big-int loops.
+        """
+        from . import uint128 as u128
+        dot = self._dot_with_secret(ct, sk)
+        m = self._message_from_dot(dot)
+        dm = self._scale_plain(m)                 # round(q*m/t) mod q_j
+        q = self.q
+        acc = u128.zeros(self.n)
+        for j, p in enumerate(self.q_mods):
+            noise_j = submod(dot[j], dm[j], p)
+            y = mulmod(noise_j, np.uint64(self.q_hat_inv[j]), p)
+            acc = u128.add(acc, u128.mul_const(y, self.q_hat[j]))
+        q128 = u128.from_int(q, self.n)
+        for _ in range(self.k - 1):
+            over = u128.geq(acc, q128)
+            acc = u128.select(over, u128.sub(acc, q128), acc)
+        # centered magnitude: min(x, q - x)
+        flip = u128.sub(q128, acc)
+        half = u128.from_int(q // 2, self.n)
+        centered = u128.select(u128.geq(half, acc), acc, flip)
+        worst = max(1, u128.max_value(centered))
+        return math.log2(q) - 1 - math.log2(worst)
+
+    # ------------------------------------------------------------------
+    # homomorphic ops
+    # ------------------------------------------------------------------
+    def _ext_addsub(self, a: Ciphertext, b: Ciphertext, fn,
+                    neg_extra: bool) -> Ciphertext:
+        """SEAL Evaluator::add/sub semantics for ANY component counts:
+        result size = max(sa, sb); shared components combine; the larger
+        operand's extra components are copied (negated when they come
+        from the subtrahend).  The wire accepts any size >= 1, so all
+        engines must agree here (tests/test_size_semantics.py) -- numpy
+        broadcasting previously made mismatched sizes accidentally
+        asymmetric (and wrong vs SEAL)."""
+        sa, sb = a.size, b.size
+        if min(sa, sb) < 1:
+            raise ValueError("add/sub expects ciphertexts with >= 1 "
+                             "component")
+        m, big = min(sa, sb), max(sa, sb)
+        out = np.empty((big, self.k, self.n), dtype=np.uint64)
+        for j, p in enumerate(self.q_mods):
+            out[:m, j] = fn(a.data[:m, j], b.data[:m, j], p)
+            if sa > sb:
+                out[m:, j] = a.data[m:, j]
+            elif sb > sa:
+                out[m:, j] = (negmod(b.data[m:, j], p) if neg_extra
+                              else b.data[m:, j])
+        return Ciphertext(self.params, out)
+
+    def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        return self._ext_addsub(a, b, addmod, False)
+
+    def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        return self._ext_addsub(a, b, submod, True)
+
+    def negate(self, a: Ciphertext) -> Ciphertext:
+        out = np.empty_like(a.data)
+        for j, p in enumerate(self.q_mods):
+            out[:, j] = negmod(a.data[:, j], p)
+        return Ciphertext(self.params, out)
+
+    def add_plain(self, a: Ciphertext, plain: np.ndarray) -> Ciphertext:
+        out = a.data.copy()
+        dm = self._scale_plain(plain)
+        for j, p in enumerate(self.q_mods):
+            out[0, j] = addmod(out[0, j], dm[j], p)
+        return Ciphertext(self.params, out)
+
+    def sub_plain(self, a: Ciphertext, plain: np.ndarray) -> Ciphertext:
+        out = a.data.copy()
+        dm = self._scale_plain(plain)
+        for j, p in enumerate(self.q_mods):
+            out[0, j] = submod(out[0, j], dm[j], p)
+        return Ciphertext(self.params, out)
+
+    def plain_sub(self, plain: np.ndarray, a: Ciphertext) -> Ciphertext:
+        """plain - ct  =  -(ct - plain)."""
+        return self.negate(self.sub_plain(a, plain))
+
+    def mul_plain(self, a: Ciphertext, plain: np.ndarray) -> Ciphertext:
+        """ct * pt: negacyclic product of every component with the plain poly."""
+        out = np.empty_like(a.data)
+        for j, p in enumerate(self.q_mods):
+            tb = self.tables[p]
+            m_ntt = ntt(np.asarray(plain, dtype=np.uint64) % np.uint64(p), tb)
+            for comp in range(a.size):
+                out[comp, j] = intt(
+                    mulmod(ntt(a.data[comp, j].copy(), tb), m_ntt, p), tb)
+        return Ciphertext(self.params, out)
 
     # ------------------------------------------------------------------
     # BEHZ full-RNS ciphertext multiplication

@@ -1,6 +1,8 @@
-// Modular primitives on native 64-bit words for the BEHZ tail kernels.
+// Modular primitives on native 64-bit words for the BEHZ tail and NTT kernels.
 //
-// Every modulus p is a prime with 2^32 < p < 2^37.  Residues are stored as
+// The tail kernels' moduli are primes with 2^32 < p < 2^37; the NTT kernels
+// use csub and the Shoup product only, which hold for any p < 2^61 (see
+// ntt.cu).  Residues are stored as
 // 8-byte words (torch.int64 on the Python side, never negative), read here as
 // unsigned long long.  Two division-free products:
 //

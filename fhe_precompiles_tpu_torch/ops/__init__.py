@@ -1,2 +1,2 @@
-"""Device path of the port: int64 residue tensors, torch NTT, the BEHZ tail
-kernels and the batched engine."""
+"""Device path of the port: int64 residue tensors, the NTT and BEHZ tail
+kernels with their plain versions, and the batched engine."""

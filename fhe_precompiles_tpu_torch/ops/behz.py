@@ -2,9 +2,10 @@
 
 Counterpart of ``fhe_precompiles_tpu/ops/behz_pair.py`` (``PairBehz.prepare``,
 ``mul_core``, ``relinearize``) in its ``pair_tail="pallas"`` configuration:
-the five pointwise segments go through the wrappers of ``ops/tail.py`` (CUDA
-kernels on the card, plain versions on the CPU) and the NTTs between them are
-the plain torch stage loops of ``ops/ntt.py``.
+the five pointwise segments go through the wrappers of ``ops/tail.py`` and the
+NTTs between them through those of ``ops/ntt.py`` (CUDA kernels on the card,
+plain versions on the CPU): three forward and two inverse transforms for one
+multiply + relinearize.
 
 The u32-pair representation of the reference does not exist here: the card
 multiplies 64-bit words natively, so residues stay whole int64 words from end

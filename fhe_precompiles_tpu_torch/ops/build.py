@@ -24,8 +24,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
+# --threads 0: the sources are compiled side by side, one job for each
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--threads", "0"]
 
 _lib = None
 build_seconds = None        # wall time of the nvcc run, None if reused
@@ -61,6 +62,15 @@ def _set_argtypes(lib) -> None:
     lib.fhe_tail_mod_down.argtypes = [vp, vp, vp, ll, i, ll, vp, vp]
     for name in ("to_bsk_ext", "dyadic", "floor_sk", "relin_dot", "mod_down"):
         getattr(lib, "fhe_tail_" + name).restype = i
+    # ntt.cu: in, out, rows, L, n, group stride, moduli, twiddles, their
+    # Shoup words, (inverse only: n_inv and its Shoup word,) stream
+    lib.fhe_ntt_max_n.argtypes = []
+    lib.fhe_ntt_max_n.restype = i
+    lib.fhe_ntt_forward.argtypes = [vp, vp, ll, i, i, ll, vp, vp, vp, vp]
+    lib.fhe_ntt_forward.restype = i
+    lib.fhe_ntt_inverse.argtypes = [vp, vp, ll, i, i, ll, vp, vp, vp, vp, vp,
+                                    vp]
+    lib.fhe_ntt_inverse.restype = i
 
 
 def load_library(verbose: bool = False):
@@ -77,7 +87,7 @@ def load_library(verbose: bool = False):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"libfhe_tail_{h.hexdigest()[:16]}.so"
+    so = BUILD_DIR / f"libfhe_kernels_{h.hexdigest()[:16]}.so"
     if not so.is_file():
         nvcc = _find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -7,7 +7,7 @@ read the same storage as ``unsigned long long``.  numpy ``uint64`` arrays
 cross over with ``.view(np.int64)`` (see ``convert.py``).
 
 This is the plain arithmetic behind the plain versions of the kernels and the
-torch NTT.  It may use ``%``; the division-free forms (Shoup, Barrett) live in
+engine's elementwise operations.  It may use ``%``; the division-free forms (Shoup, Barrett) live in
 ``csrc/modmath.cuh``, and the host-side helpers that compute their constants
 are here.
 

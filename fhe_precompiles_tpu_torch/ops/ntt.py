@@ -1,42 +1,84 @@
-"""Negacyclic NTT over stacks of RNS limbs as plain torch stage loops.
+"""Negacyclic NTT over stacks of RNS limbs: two CUDA kernels, their wrappers
+and their plain PyTorch versions.
 
 Same transform as ``bfv/ntt.py`` (Cooley-Tukey forward, Gentleman-Sande
-inverse, twiddles in SEAL's bit-reversed layout), vectorised over tensors
-shaped ``(..., L, n)`` where row ``l`` of the limb axis is reduced mod
-``moduli[l]``.  Forward input and every output are canonical residues.
+inverse, twiddles in SEAL's bit-reversed layout) over tensors shaped
+``(..., L, n)`` where row ``l`` of the limb axis is reduced mod ``moduli[l]``.
+Forward input and every output are canonical residues.
 
-The schedule is the plainest exact one: radix 2, one pass per stage, every
-butterfly fully reduced.  The JAX reference fuses stages and keeps values
-lazy between them; both are exact arithmetic on canonical inputs, so they
-give the same bytes.  These loops are the plain version that the hand-written
-NTT kernels of a later slice will be held against.
+  =======  ==============================================  ================
+  wrapper  replaces (fhe_precompiles_tpu/ops/              plain version
+           pallas_pair_ntt.py)
+  =======  ==============================================  ================
+  ntt      PairPallasNtt.ntt  / _kernel_factory(False)     ntt_plain
+  intt     PairPallasNtt.intt / _kernel_factory(True)      intt_plain
+  =======  ==============================================  ================
+
+``ntt`` / ``intt`` take the plain version only for a tensor that lies on the
+CPU.  For a CUDA tensor they launch the kernel of ``csrc/ntt.cu`` on
+PyTorch's current stream (no synchronise; the output comes from
+``torch.empty``) or raise; nothing falls back.  Each adds one to
+``launch_counts[name]`` where it launches.
+
+The plain versions are the plainest exact schedule: radix 2, one pass per
+stage, every butterfly fully reduced.  The kernels keep values lazy between
+stages (Harvey) and use Shoup twiddles; both are exact arithmetic on
+canonical inputs, so they give the same bytes, and so does the JAX reference.
+Nothing on the card's path calls the plain versions.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..bfv.modmath import get_ntt_tables
-from .modmath import addmod, mulmod, submod
+from . import build
+from .modmath import addmod, mulmod, shoup_precompute, submod
+
+KERNEL_NAMES = ("ntt", "intt")
+launch_counts = {name: 0 for name in KERNEL_NAMES}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class NttTables:
-    """Twiddle tables for a stack of L moduli, int64 tensors on one device."""
+    """Twiddle tables for a stack of L moduli, int64 tensors on one device.
+
+    The ``*_shoup`` companions hold floor(w * 2**64 / p) for the word beside
+    them (uint64 words in int64 storage: only the kernels read them)."""
 
     n: int
-    p: torch.Tensor             # (L, 1)
-    root: torch.Tensor          # (L, n) forward twiddles, bit-reversed order
-    inv_root: torch.Tensor      # (L, n)
-    n_inv: torch.Tensor         # (L, 1): n^-1 (times the folded factor) mod p
+    p: torch.Tensor               # (L, 1)
+    root: torch.Tensor            # (L, n) forward twiddles, bit-reversed order
+    inv_root: torch.Tensor        # (L, n)
+    n_inv: torch.Tensor           # (L, 1): n^-1 (times the folded factor) mod p
+    root_shoup: torch.Tensor      # (L, n)
+    inv_root_shoup: torch.Tensor  # (L, n)
+    n_inv_shoup: torch.Tensor     # (L, 1)
 
 
 def _dev(arr, device) -> torch.Tensor:
     return torch.from_numpy(
         np.ascontiguousarray(arr, dtype=np.uint64).view(np.int64)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _host_rows(p: int, n: int):
+    """(root, root_shoup, inv_root, inv_root_shoup, n_inv) of one modulus."""
+    t = get_ntt_tables(p, n)
+    root = np.asarray(t.root_powers, dtype=np.uint64)
+    inv_root = np.asarray(t.inv_root_powers, dtype=np.uint64)
+    return (root, shoup_precompute(root, p), inv_root,
+            shoup_precompute(inv_root, p), int(t.n_inv))
 
 
 def build_tables(moduli: Sequence[int], n: int, device,
@@ -45,22 +87,29 @@ def build_tables(moduli: Sequence[int], n: int, device,
     n_inv_factors: optional per-limb constants folded into the inverse
     transform's n^-1 multiply, so that ``intt`` returns ``factor * x``
     without a separate pass (the engine folds t and t * q_hat_inv there)."""
-    tabs = [get_ntt_tables(int(p), n) for p in moduli]
-    n_inv = [int(t.n_inv) for t in tabs]
+    moduli = [int(p) for p in moduli]
+    rows = [_host_rows(p, n) for p in moduli]
+    n_inv = [r[4] for r in rows]
     if n_inv_factors is not None:
-        n_inv = [v * int(f) % int(p)
-                 for v, f, p in zip(n_inv, n_inv_factors, moduli)]
+        n_inv = [v * int(f) % p for v, f, p in zip(n_inv, n_inv_factors, moduli)]
     col = lambda v: np.array(v, dtype=np.uint64).reshape(-1, 1)  # noqa: E731
+    stack = lambda i: _dev(np.stack([r[i] for r in rows]), device)  # noqa: E731
     return NttTables(
         n=n,
-        p=_dev(col([int(p) for p in moduli]), device),
-        root=_dev(np.stack([t.root_powers for t in tabs]), device),
-        inv_root=_dev(np.stack([t.inv_root_powers for t in tabs]), device),
+        p=_dev(col(moduli), device),
+        root=stack(0),
+        inv_root=stack(2),
         n_inv=_dev(col(n_inv), device),
+        root_shoup=stack(1),
+        inv_root_shoup=stack(3),
+        n_inv_shoup=_dev(shoup_precompute(col(n_inv), col(moduli)), device),
     )
 
 
-def ntt(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+# ======================================================================
+# plain PyTorch versions
+# ======================================================================
+def ntt_plain(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
     """Forward NTT along the last axis: natural order in, bit-reversed out."""
     n, L = tb.n, tb.p.shape[0]
     lead = x.shape[:-1]
@@ -77,7 +126,7 @@ def ntt(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
     return a.reshape(lead + (n,))
 
 
-def intt(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+def intt_plain(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
     """Inverse NTT: bit-reversed in, natural order out, times tb.n_inv."""
     n, L = tb.n, tb.p.shape[0]
     lead = x.shape[:-1]
@@ -92,3 +141,88 @@ def intt(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
         t *= 2
         m //= 2
     return mulmod(a.reshape(lead + (n,)), tb.n_inv, tb.p)
+
+
+# ======================================================================
+# kernel wrappers
+# ======================================================================
+def _group_stride(x: torch.Tensor, name: str, L: int, n: int) -> int:
+    """The distance in words between successive (L, n) blocks of `x`, which
+    the kernel takes as it is.  Each block must be contiguous and the leading
+    axes must step evenly (a contiguous tensor, or a view such as
+    ``ct[:, comp]`` of a contiguous (B, size, L, n) batch); anything else is
+    refused, not copied."""
+    if x.dim() == 2 or x.is_contiguous():
+        stride = L * n
+        inner = x.stride()[-2:]
+    else:
+        try:
+            flat = x.view(-1, L, n)
+        except RuntimeError:
+            raise ValueError(f"{name}: the leading axes of a strided input "
+                             "must collapse into one even step") from None
+        stride, inner = flat.stride(0), flat.stride()[1:]
+    if x.numel() and n > 1 and tuple(inner) != (n, 1):
+        raise ValueError(f"{name}: each (L, n) block must be contiguous, got "
+                         f"strides {tuple(x.stride())}")
+    if x.data_ptr() % 16 or stride % 2:
+        raise ValueError(f"{name}: rows must start on 16-byte boundaries")
+    return stride
+
+
+def _launch(name: str, x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    if not x.is_cuda:
+        raise ValueError(f"{name}: no kernel for a tensor on device "
+                         f"{x.device} (CUDA launches the kernel, CPU takes "
+                         "the plain version)")
+    if x.dtype != torch.int64:
+        raise TypeError(f"{name}: expected torch.int64, got {x.dtype}")
+    L, n = tb.p.shape[0], tb.n
+    if x.dim() < 2 or tuple(x.shape[-2:]) != (L, n):
+        raise ValueError(f"{name}: expected shape (..., {L}, {n}), got "
+                         f"{tuple(x.shape)}")
+    if tb.p.device != x.device:
+        raise ValueError(f"{name}: tables on {tb.p.device}, data on "
+                         f"{x.device}")
+    stride = _group_stride(x, name, L, n)
+    lib = build.load_library()
+    if n < 8 or n > lib.fhe_ntt_max_n():
+        raise ValueError(f"{name}: the kernel takes 8 <= n <= "
+                         f"{lib.fhe_ntt_max_n()} (a row must fit one block's "
+                         f"shared memory), got n = {n}")
+    out = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    rows = math.prod(x.shape[:-1])
+    with torch.cuda.device(x.device):      # the launch goes to x's card
+        stream = torch.cuda.current_stream().cuda_stream
+        if name == "ntt":
+            rc = lib.fhe_ntt_forward(
+                x.data_ptr(), out.data_ptr(), rows, L, n, stride,
+                tb.p.data_ptr(), tb.root.data_ptr(), tb.root_shoup.data_ptr(),
+                stream)
+        else:
+            rc = lib.fhe_ntt_inverse(
+                x.data_ptr(), out.data_ptr(), rows, L, n, stride,
+                tb.p.data_ptr(), tb.inv_root.data_ptr(),
+                tb.inv_root_shoup.data_ptr(), tb.n_inv.data_ptr(),
+                tb.n_inv_shoup.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
+    launch_counts[name] += 1
+    return out
+
+
+def ntt(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    """Forward NTT of (..., L, n): natural order in, bit-reversed out.
+    Kernel for PairPallasNtt.ntt.  Bound by bytes: reads and writes
+    rows * n words once."""
+    if x.device.type == "cpu":
+        return ntt_plain(x, tb)
+    return _launch("ntt", x, tb)
+
+
+def intt(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    """Inverse NTT of (..., L, n): bit-reversed in, natural order out, times
+    tb.n_inv.  Kernel for PairPallasNtt.intt.  Bound by bytes, as ``ntt``."""
+    if x.device.type == "cpu":
+        return intt_plain(x, tb)
+    return _launch("intt", x, tb)

@@ -1,7 +1,8 @@
 """The port's copied host model (params, sampling, BfvContext) against the
 JAX package's: equal presets and derived constants, equal keys from the same
-seed, equal encrypt bytes, equal multiply / relinearize bytes.  Exact:
-``np.array_equal`` / ``==`` throughout.
+seed, equal encrypt bytes, equal multiply / relinearize bytes, equal
+elementwise operations (SEAL's zero-extension included) and an equal noise
+budget.  Exact: ``np.array_equal`` / ``==`` throughout.
 """
 import numpy as np
 import pytest
@@ -14,7 +15,7 @@ from fhe_precompiles_tpu.bfv import RelinKeys as JaxRelinKeys
 
 from fhe_precompiles_tpu_torch import params as tp
 from fhe_precompiles_tpu_torch import sampling as ts
-from fhe_precompiles_tpu_torch.bfv import BfvContext
+from fhe_precompiles_tpu_torch.bfv import BfvContext, Ciphertext
 
 SEED = b"\x21" * 64
 
@@ -131,3 +132,90 @@ def test_size_checks_raise(both):
         b.relinearize(ct, pk_b.relin)
     with pytest.raises(ValueError):
         b.multiply(b.multiply(ct, ct), ct)
+
+
+# ----------------------------------------------------------------------
+# elementwise operations and the noise-budget meter
+# ----------------------------------------------------------------------
+GOLDEN_OPS = {
+    "add": lambda g, x, y, m: g.add(x, y),
+    "sub": lambda g, x, y, m: g.sub(x, y),
+    "negate": lambda g, x, y, m: g.negate(x),
+    "add_plain": lambda g, x, y, m: g.add_plain(x, m),
+    "sub_plain": lambda g, x, y, m: g.sub_plain(x, m),
+    "plain_sub": lambda g, x, y, m: g.plain_sub(m, x),
+    "mul_plain": lambda g, x, y, m: g.mul_plain(x, m),
+}
+
+
+@pytest.fixture(scope="module")
+def operands(both):
+    a, b, (pk_a, _), _ = both
+    rng = np.random.default_rng(9)
+    m = rng.integers(0, a.t, size=(3, a.n), dtype=np.uint64)
+    cts = [a.encrypt(m[i], pk_a, bytes([i + 9]) * 64).data for i in range(2)]
+    return cts, m[2], rng
+
+
+@pytest.mark.parametrize("op", sorted(GOLDEN_OPS))
+def test_elementwise_op_bytes_equal(both, operands, op):
+    a, b, _, _ = both
+    (x, y), m, _ = operands
+    want = GOLDEN_OPS[op](a, JaxCiphertext(jp.TESTNET_ONE, x),
+                          JaxCiphertext(jp.TESTNET_ONE, y), m)
+    got = GOLDEN_OPS[op](b, Ciphertext(tp.TESTNET_ONE, x),
+                         Ciphertext(tp.TESTNET_ONE, y), m)
+    assert isinstance(got, Ciphertext)
+    assert np.array_equal(got.data, want.data)
+
+
+@pytest.mark.parametrize("sizes", [(1, 3), (3, 2), (2, 2)])
+def test_ext_addsub_bytes_equal_over_unequal_sizes(both, operands, sizes):
+    a, b, _, _ = both
+    _, _, rng = operands
+    data = []
+    for size in sizes:
+        d = np.empty((size, a.k, a.n), dtype=np.uint64)
+        for j, p in enumerate(a.q_mods):
+            d[:, j] = rng.integers(0, p, size=(size, a.n), dtype=np.uint64)
+        data.append(d)
+    for name in ("add", "sub"):
+        want = getattr(a, name)(*(JaxCiphertext(jp.TESTNET_ONE, d)
+                                  for d in data))
+        got = getattr(b, name)(*(Ciphertext(tp.TESTNET_ONE, d)
+                                 for d in data))
+        assert got.size == max(sizes)
+        assert np.array_equal(got.data, want.data)
+    with pytest.raises(ValueError):
+        b.add(Ciphertext(tp.TESTNET_ONE, data[0][:0]),
+              Ciphertext(tp.TESTNET_ONE, data[1]))
+
+
+def test_noise_budget_bits_equal(both, operands):
+    a, b, (pk_a, sk_a), (pk_b, sk_b) = both
+    (x, y), _, _ = operands
+    fresh_a = a.noise_budget_bits(JaxCiphertext(jp.TESTNET_ONE, x), sk_a)
+    fresh_b = b.noise_budget_bits(Ciphertext(tp.TESTNET_ONE, x), sk_b)
+    assert fresh_a == fresh_b and fresh_b > 20
+    prod = b.mul_relin(Ciphertext(tp.TESTNET_ONE, x),
+                       Ciphertext(tp.TESTNET_ONE, y), pk_b.relin)
+    used_b = b.noise_budget_bits(prod, sk_b)
+    assert used_b == a.noise_budget_bits(
+        JaxCiphertext(jp.TESTNET_ONE, prod.data), sk_a)
+    assert 0 < used_b < fresh_b
+
+
+def test_uint128_helpers_equal():
+    from fhe_precompiles_tpu.bfv import uint128 as ja
+    from fhe_precompiles_tpu_torch.bfv import uint128 as ta
+    rng = np.random.default_rng(10)
+    y = rng.integers(0, 1 << 37, size=64, dtype=np.uint64)
+    c = (1 << 70) + 12345
+    for mod in (ja, ta):
+        acc = mod.add(mod.zeros(64), mod.mul_const(y, c))
+        hi, lo = acc
+        assert [(int(h) << 64) | int(v) for h, v in zip(hi, lo)] == [
+            int(v) * c for v in y]
+    x1, x2 = ja.mul_const(y, c), ta.mul_const(y, c)
+    assert all(np.array_equal(u, v) for u, v in zip(x1, x2))
+    assert ja.max_value(x1) == ta.max_value(x2) == int(y.max()) * c

@@ -12,6 +12,7 @@ import torch
 
 import fhe_precompiles_tpu_torch
 from fhe_precompiles_tpu_torch.ops import build, tail
+from fhe_precompiles_tpu_torch.ops import ntt as torch_ntt
 from fhe_precompiles_tpu_torch.ops.engine import TorchEngine
 from fhe_precompiles_tpu_torch.params import TESTNET_ONE
 
@@ -27,8 +28,9 @@ def _submodules():
 def test_every_submodule_is_listed():
     names = _submodules()
     for want in ("params", "sampling", "convert", "bfv.golden", "bfv.ntt",
-                 "bfv.modmath", "ops.modmath", "ops.ntt", "ops.tail",
-                 "ops.tail_cases", "ops.behz", "ops.engine", "ops.build"):
+                 "bfv.modmath", "bfv.uint128", "ops.modmath", "ops.ntt",
+                 "ops.tail", "ops.tail_cases", "ops.behz", "ops.engine",
+                 "ops.build", "ops.wide"):
         assert "fhe_precompiles_tpu_torch." + want in names
 
 
@@ -86,6 +88,8 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         return torch.empty(shape, dtype=torch.int64, device="meta")
 
     tail.reset_launch_counts()
+    torch_ntt.reset_launch_counts()
+    bz = eng.behz
     calls = {
         "to_bsk_ext": lambda: tail.to_bsk_ext(meta(1, 2, k, n), c),
         "dyadic": lambda: tail.dyadic(meta(1, 2, nb, n), meta(1, 2, nb, n),
@@ -95,8 +99,10 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
                                             meta(k, 2, kk, n), c),
         "mod_down": lambda: tail.mod_down(meta(1, 2, kk, n),
                                           meta(1, 2, k, n), c),
+        "ntt": lambda: torch_ntt.ntt(meta(1, 2, nb, n), bz.tb_all),
+        "intt": lambda: torch_ntt.intt(meta(1, 2, kk, n), bz.tb_key),
     }
-    assert set(calls) == set(tail.KERNEL_NAMES)
+    assert set(calls) == set(tail.KERNEL_NAMES + torch_ntt.KERNEL_NAMES)
     for name, call in calls.items():
         with pytest.raises(ValueError, match="no kernel for a tensor"):
             call()
@@ -105,6 +111,13 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         tail.dyadic(torch.zeros((1, 2, nb, n), dtype=torch.int64),
                     meta(1, 2, nb, n), c)
     assert not any(tail.launch_counts.values())
+    assert not any(torch_ntt.launch_counts.values())
+    # the engine's own entry points refuse it too: no NTT on the way quietly
+    # takes the stage loops
+    with pytest.raises(ValueError, match="no kernel for a tensor"):
+        eng._mul_plain(meta(1, 2, k, n), meta(1, n))
+    with pytest.raises(ValueError, match="no kernel for a tensor"):
+        eng._decrypt_fn(2)(meta(1, 2, k, n), meta(k, n))
 
 
 def test_kernel_library_needs_nvcc_and_says_so(monkeypatch):

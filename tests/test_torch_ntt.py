@@ -1,6 +1,9 @@
-"""The port's torch NTT against the JAX package's golden numpy NTT
-(``fhe_precompiles_tpu.bfv.ntt``) on the moduli stacks the multiply path
-uses.  Exact integer arithmetic: every comparison is ``np.array_equal``.
+"""The port's NTT wrappers (on the CPU: the plain versions of the kernels)
+against the JAX package's golden numpy NTT (``fhe_precompiles_tpu.bfv.ntt``)
+on the moduli stacks the engine uses, and against the Pallas kernels they
+replace (``PairPallasNtt`` in interpret mode); the Shoup companions of the
+twiddle tables against Python integers.  Exact integer arithmetic: every
+comparison is ``np.array_equal``.
 """
 import numpy as np
 import pytest
@@ -12,8 +15,10 @@ from fhe_precompiles_tpu.bfv.modmath import mulmod as np_mulmod
 
 from fhe_precompiles_tpu_torch.bfv import BfvContext
 from fhe_precompiles_tpu_torch.ops import modmath as tm
+from fhe_precompiles_tpu_torch.ops import ntt as tn
 from fhe_precompiles_tpu_torch.ops.ntt import build_tables, intt, ntt
-from fhe_precompiles_tpu_torch.params import BENCH_N8192, TESTNET_ONE
+from fhe_precompiles_tpu_torch.params import (BENCH_N1024, BENCH_N8192,
+                                              TESTNET_ONE)
 
 # the suite runs several workers side by side: keep torch to one thread each
 torch.set_num_threads(1)
@@ -115,3 +120,122 @@ def test_shoup_and_barrett_constants_match_jax_package():
     w = w % p
     assert np.array_equal(tm.shoup_precompute(w, p), jm.shoup_precompute(w, p))
     assert np.array_equal(tm.barrett_mu(p), jm.barrett_mu(p))
+
+
+# ----------------------------------------------------------------------
+# against the Pallas kernels the CUDA kernels replace
+# ----------------------------------------------------------------------
+def _pallas(mods, n, **kw):
+    from fhe_precompiles_tpu.ops.pallas_pair_ntt import PairPallasNtt
+    return PairPallasNtt(mods, n, tb=2, interpret=True, **kw)
+
+
+def _pair(x):
+    from fhe_precompiles_tpu.ops import pair as pr
+    return pr.split64(x)
+
+
+def _unpair(xp):
+    lo, hi = (np.asarray(v).astype(np.uint64) for v in xp)
+    return lo | (hi << np.uint64(32))
+
+
+def test_wrappers_match_pallas_pair_ntt_interpret():
+    """n = 256 over q u Bsk, three ciphertext rows (not a multiple of the
+    Pallas tile: its padding is its own affair)."""
+    n, mods = 256, G1.q_mods + G1.Bsk
+    x = _rand(np.random.default_rng(21), (3,), mods, n)
+    tb = build_tables(mods, n, "cpu")
+    pp = _pallas(mods, n)
+    fwd = pp.ntt(_pair(x))
+    assert np.array_equal(_np(ntt(_t(x), tb)), _unpair(fwd))
+    assert np.array_equal(_np(intt(_t(_unpair(fwd)), tb)),
+                          _unpair(pp.intt(fwd)))
+    assert np.array_equal(_np(intt(_t(x), tb)), _unpair(pp.intt(_pair(x))))
+
+
+def test_folded_inverse_matches_pallas_pair_ntt_interpret():
+    n, mods, t = 256, G1.q_mods, TESTNET_ONE.t
+    factors = [t * G1.q_hat_inv[i] % p for i, p in enumerate(mods)]
+    x = _rand(np.random.default_rng(22), (2,), mods, n)
+    got = _np(intt(_t(x), build_tables(mods, n, "cpu",
+                                        n_inv_factors=factors)))
+    want = _unpair(_pallas(mods, n, n_inv_factors=factors).intt(_pair(x)))
+    assert np.array_equal(got, want)
+
+
+# ----------------------------------------------------------------------
+# the tables the kernels read
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("name", ["testnet.one", "bench.n8192", "bench.n1024"])
+def test_shoup_tables_equal_python_integers(name):
+    """floor(w * 2**64 / p) for every twiddle of every limb the preset's
+    engine transforms over, and for n^-1 with a factor folded in."""
+    prm = {"testnet.one": TESTNET_ONE, "bench.n8192": BENCH_N8192,
+           "bench.n1024": BENCH_N1024}[name]
+    g = BfvContext(prm)
+    mods = sorted(set(g.q_mods + g.Bsk + g.key_mods))
+    factors = [(prm.t * 7 + i) % p for i, p in enumerate(mods)]
+    tb = build_tables(mods, g.n, "cpu", n_inv_factors=factors)
+    jt = [jax_tables(int(p), g.n) for p in mods]
+    for li, p in enumerate(mods):
+        for words, shoup, ref in (
+                (tb.root, tb.root_shoup, jt[li].root_powers),
+                (tb.inv_root, tb.inv_root_shoup, jt[li].inv_root_powers)):
+            w = _np(words[li]).tolist()
+            assert w == [int(v) for v in ref]
+            assert _np(shoup[li]).tolist() == [(v << 64) // p for v in w]
+        n_inv = int(jt[li].n_inv) * factors[li] % p
+        assert int(_np(tb.n_inv)[li, 0]) == n_inv
+        assert int(_np(tb.n_inv_shoup)[li, 0]) == (n_inv << 64) // p
+        assert int(_np(tb.p)[li, 0]) == p
+
+
+def test_shoup_lazy_product_is_exact_for_any_word():
+    """The kernels' butterfly product, in Python integers: for every 64-bit
+    a, a*w - hi64(a*ws)*p lies in [0, 2p) and is congruent to a*w, for a
+    prime near 2^27 and one near 2^61 alike."""
+    rng = np.random.default_rng(23)
+    for p in (BENCH_N1024.coeff_modulus[0], TESTNET_ONE.coeff_modulus[2],
+              (1 << 61) - 1):
+        for _ in range(200):
+            w = int(rng.integers(0, p))
+            a = int(rng.integers(0, 1 << 63)) * 2 + int(rng.integers(0, 2))
+            ws = (w << 64) // p
+            r = (a * w - ((a * ws) >> 64) * p) % (1 << 64)
+            assert 0 <= r < 2 * p and r % p == a * w % p
+
+
+# ----------------------------------------------------------------------
+# what the wrappers take and refuse
+# ----------------------------------------------------------------------
+def test_wrapper_on_cpu_takes_a_strided_view_and_launches_nothing():
+    n, mods = 256, G1.q_mods
+    tb = build_tables(mods, n, "cpu")
+    ct = _t(_rand(np.random.default_rng(24), (3, 2), mods, n))
+    tn.reset_launch_counts()
+    view = ct[:, 1]
+    assert not view.is_contiguous()
+    assert torch.equal(ntt(view, tb), ntt(view.contiguous(), tb))
+    assert torch.equal(intt(view, tb), tn.intt_plain(view.contiguous(), tb))
+    assert tn.launch_counts == {"ntt": 0, "intt": 0}
+
+
+def test_group_stride_of_views():
+    """The stride the kernel is handed, computed on the host: contiguous
+    stacks, the decrypt view ``ct[:, comp]``, and what is refused."""
+    L, n = 2, 8
+    x = torch.zeros((4, 3, L, n), dtype=torch.int64)
+    assert tn._group_stride(x, "ntt", L, n) == L * n
+    assert tn._group_stride(x[0, 0], "ntt", L, n) == L * n
+    assert tn._group_stride(x[:, 1], "ntt", L, n) == 3 * L * n
+    with pytest.raises(ValueError, match="contiguous"):
+        tn._group_stride(torch.zeros((n, L), dtype=torch.int64).t(), "ntt",
+                         L, n)
+    with pytest.raises(ValueError, match="contiguous"):
+        tn._group_stride(x[..., ::2], "ntt", L, n // 2)
+    with pytest.raises(ValueError, match="collapse"):
+        tn._group_stride(x[:, :2], "ntt", L, n)
+    with pytest.raises(ValueError, match="16-byte"):
+        tn._group_stride(torch.zeros(L * n + 1, dtype=torch.int64)[1:]
+                         .view(L, n), "ntt", L, n)
