@@ -3,27 +3,33 @@
     python3 chip_smoke.py            # needs one CUDA card and nvcc
     python3 chip_smoke.py --ptxas    # also prints each kernel's registers
 
-Drives the port's two paths through ``TorchEngine`` on the card, on
+Drives the port's paths through ``TorchEngine`` on the card, on
 ``testnet.one`` (n = 4096) at a batch of 128, and checks each byte for byte
 against the port's host golden model: the main path, ciphertext x ciphertext
 BFV multiplies followed by relinearization, and the round trip, encrypt on
 the card -> multiply + relinearize -> decrypt on the card, with the
-elementwise operations beside it.  Before that it builds the CUDA kernels
-from ``fhe_precompiles_tpu_torch/csrc/`` and holds each of the seven (five
-BEHZ tail segments, forward and inverse NTT) against its plain PyTorch version
-on the card (exact integer arithmetic: the tolerance is 0, every word must be
-equal).
+elementwise operations beside it, on the default engine (butterfly NTT);
+then the same multiply and round trip on the four-step engine
+(``ntt_backend="four_step"``) and the four-step transform in its two-launch
+form.  Before that it builds the CUDA kernels from
+``fhe_precompiles_tpu_torch/csrc/`` and holds each of the ten (five BEHZ
+tail segments, forward and inverse butterfly NTT, forward and inverse
+four-step NTT, one four-step product) against its plain PyTorch version on
+the card, and the four-step transforms against the butterfly kernels too
+(exact integer arithmetic: the tolerance is 0, every word must be equal).
 
 Phases, one JSON line each: device, build, kernels, main_path, round_trip,
-timing.  Any failure ends the run with a non-zero exit code and without the
-last line.  Then, in this order: the card's name and power limit as
-``nvidia-smi`` gives them, one ``{"kernels": [...]}`` line (per kernel:
-launches counted during the main-path run and during the round trip, error
-against the plain version, measured times, and the least time the card could
-take; ``ms`` is taken with the inputs cold in the cache and is the time
-``bound_ms`` is held against, ``same_buffers_ms`` repeats one input set,
-``path_ms`` is one call inside ``_mul_relin``, for the NTTs the call of
-the shape that ``ms`` was taken at), and the last line
+timing, four_step_path.  Any failure ends the run with a non-zero exit code
+and without the last line.  Then, in this order: the card's name and power
+limit as ``nvidia-smi`` gives them, one ``{"kernels": [...]}`` line (per
+kernel: launches counted during its path's run and during its round trip,
+error against the plain version, measured times, and the least time the
+card could take, with its bytes and operations terms; ``ms`` is taken with
+the inputs cold in the cache and is the time ``bound_ms`` is held against,
+``same_buffers_ms`` repeats one input set, ``path_ms`` is one call inside
+``_mul_relin``, for the NTTs the call of the shape that ``ms`` was taken at,
+for the four-step product its launch inside the two-launch transform), and
+the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 It imports ``fhe_precompiles_tpu_torch`` only, never JAX.
@@ -43,6 +49,7 @@ import torch
 from fhe_precompiles_tpu_torch import convert
 from fhe_precompiles_tpu_torch.bfv import BfvContext, Ciphertext
 from fhe_precompiles_tpu_torch.ops import build, tail, tail_cases
+from fhe_precompiles_tpu_torch.ops import four_step as fsm
 from fhe_precompiles_tpu_torch.ops import ntt as nttm
 from fhe_precompiles_tpu_torch.ops.engine import TorchEngine
 from fhe_precompiles_tpu_torch.ops.modmath import csub_reduce
@@ -61,6 +68,9 @@ SEED = 20240607
 # the high half of a 64 x 64-bit product takes four, the low half three.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_IMAD_PER_S = 16.75e12
+# The four-step kernels' digit products run on the tensor cores: 1,979e12
+# dense int8 operations a second, a multiply and an add being two.
+PEAK_INT8_OPS_PER_S = 1979e12
 MULHI, MULLO = 4, 3
 SHOUP = MULHI + 2 * MULLO         # hi(a * ws), a * w, q * p
 BARRETT = MULHI + MULLO           # hi(x * mu), q * p
@@ -70,18 +80,27 @@ MUL_LAZY = MULHI + 2 * MULLO + BARRETT
 MULMOD = MUL_LAZY + BARRETT
 L2_BYTES = 50 * 2 ** 20           # the card's L2 cache
 
-# launches of each kernel in one _mul_relin
+# launches of each kernel in one _mul_relin, default engine and four-step
+# engine
 CALLS_PER_MUL_RELIN = {"to_bsk_ext": 2, "dyadic": 1, "floor_sk": 1,
                        "relin_dot": 1, "mod_down": 1, "ntt": 3, "intt": 2}
+FOUR_STEP_CALLS_PER_MUL_RELIN = {
+    **{name: CALLS_PER_MUL_RELIN[name] for name in tail.KERNEL_NAMES},
+    "four_step_ntt": 3, "four_step_intt": 2}
 # NTT launches of the round trip: encrypt_batch, _mul_relin, _multiply,
 # decrypt_batch of sizes 2 and 3, decrypt of the boundary ciphertext,
 # mul_plain (forward, inverse); the tail kernels run in the two multiplies
 ROUND_TRIP_NTT_CALLS = {
     "ntt": 1 + 3 + 2 + 1 + 2 + 1 + 2, "intt": 2 + 2 + 1 + 1 + 1 + 1 + 1}
+# the four-step engine's round trip: encrypt_batch, _mul_relin, _multiply,
+# decrypt_batch of sizes 2 and 3
+FOUR_STEP_ROUND_TRIP_CALLS = {"four_step_ntt": 1 + 3 + 2 + 1 + 2,
+                              "four_step_intt": 2 + 2 + 1 + 1 + 1}
 
 CSRC = "fhe_precompiles_tpu_torch/csrc/"
 SOURCES = {name: CSRC + "tail.cu" for name in tail.KERNEL_NAMES}
 SOURCES.update({name: CSRC + "ntt.cu" for name in nttm.KERNEL_NAMES})
+SOURCES.update({name: CSRC + "four_step.cu" for name in fsm.KERNEL_NAMES})
 REPLACES = {
     "to_bsk_ext": "fhe_precompiles_tpu/ops/pallas_tail.py:147",
     "dyadic": "fhe_precompiles_tpu/ops/pallas_tail.py:214",
@@ -90,17 +109,26 @@ REPLACES = {
     "mod_down": "fhe_precompiles_tpu/ops/pallas_tail.py:415",
     "ntt": "fhe_precompiles_tpu/ops/pallas_pair_ntt.py:86",
     "intt": "fhe_precompiles_tpu/ops/pallas_pair_ntt.py:135",
+    "four_step_ntt": "fhe_precompiles_tpu/ops/pallas_ntt.py:239",
+    "four_step_intt": "fhe_precompiles_tpu/ops/pallas_ntt.py:279",
+    "four_step_phase": "fhe_precompiles_tpu/ops/pallas_ntt.py:184",
 }
-KERNEL_NAMES = tail.KERNEL_NAMES + nttm.KERNEL_NAMES
+KERNEL_NAMES = tail.KERNEL_NAMES + nttm.KERNEL_NAMES + fsm.KERNEL_NAMES
 
 
 def reset_launch_counts() -> None:
     tail.reset_launch_counts()
     nttm.reset_launch_counts()
+    fsm.reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    return {**tail.launch_counts, **nttm.launch_counts}
+    return {**tail.launch_counts, **nttm.launch_counts, **fsm.launch_counts}
+
+
+def expected_counts(calls: dict) -> dict:
+    """Every kernel's launches: those in `calls`, 0 for the others."""
+    return {name: calls.get(name, 0) for name in KERNEL_NAMES}
 
 
 def emit(obj) -> None:
@@ -264,20 +292,21 @@ def ntt_cases(eng: TorchEngine, rng):
     The first case of each kernel is the one timed for the last ``kernels``
     line.
     (label, kernel name, tables, tables for the way back or None, input)."""
-    g, bz, n = eng.golden, eng.behz, eng.n
+    g, n = eng.golden, eng.n
+    tb = {stack: t.tables for stack, t in eng.ntts.items()}
     all_mods = g.q_mods + g.Bsk
     ct = ntt_rows(rng, (BATCH, 2), g.q_mods, n)
     cases = [
-        ("prepare q+bsk", "ntt", bz.tb_all, bz.tb_all,
+        ("prepare q+bsk", "ntt", tb["all"], tb["all"],
          ntt_rows(rng, (BATCH, 2), all_mods, n)),
-        ("mul_core q+bsk, t*qhat_inv folded", "intt", bz.tb_all_t, None,
+        ("mul_core q+bsk, t*qhat_inv folded", "intt", tb["all_t"], None,
          ntt_rows(rng, (BATCH, 3), all_mods, n)),
-        ("relinearize key", "ntt", bz.tb_key, bz.tb_key,
+        ("relinearize key", "ntt", tb["key"], tb["key"],
          ntt_rows(rng, (BATCH, g.k), g.key_mods, n)),
-        ("relinearize key", "intt", bz.tb_key, bz.tb_key,
+        ("relinearize key", "intt", tb["key"], tb["key"],
          ntt_rows(rng, (BATCH, 2), g.key_mods, n)),
-        ("decrypt q, strided ct[:, 1]", "ntt", eng.tb_q, eng.tb_q, ct[:, 1]),
-        ("decrypt q", "intt", eng.tb_q, eng.tb_q,
+        ("decrypt q, strided ct[:, 1]", "ntt", tb["q"], tb["q"], ct[:, 1]),
+        ("decrypt q", "intt", tb["q"], tb["q"],
          ntt_rows(rng, (BATCH,), g.q_mods, n)),
     ]
     for label, params, batch in (("bench.n8192", BENCH_N8192, 2),
@@ -301,27 +330,163 @@ def ntt_cases(eng: TorchEngine, rng):
     return cases
 
 
+def four_step_cases(eng4: TorchEngine, eng: TorchEngine, rng):
+    """Every shape the four-step engine gives its transforms on testnet.one
+    at BATCH, then bench.n8192 (R = 128: dynamic shared memory) and
+    bench.n1024 (R = 16, a 27-bit prime) at small batches.  (label,
+    direction, four-step tables, butterfly tables of the same moduli and
+    fold, whether to go there and back, input)."""
+    g, n = eng4.golden, eng4.n
+    all_mods = g.q_mods + g.Bsk
+    f, b = eng4.ntts, eng.ntts
+    ct = ntt_rows(rng, (BATCH, 2), g.q_mods, n)
+
+    def pair(stack):
+        return f[stack].tables, b[stack].tables
+    cases = [
+        ("prepare q+bsk", "ntt", *pair("all"), True,
+         ntt_rows(rng, (BATCH, 2), all_mods, n)),
+        ("mul_core q+bsk, t*qhat_inv folded", "intt", *pair("all_t"), False,
+         ntt_rows(rng, (BATCH, 3), all_mods, n)),
+        ("relinearize key", "ntt", *pair("key"), True,
+         ntt_rows(rng, (BATCH, g.k), g.key_mods, n)),
+        ("relinearize key", "intt", *pair("key"), True,
+         ntt_rows(rng, (BATCH, 2), g.key_mods, n)),
+        ("decrypt q, strided ct[:, 1]", "ntt", *pair("q"), True, ct[:, 1]),
+        ("decrypt q", "intt", *pair("q"), True,
+         ntt_rows(rng, (BATCH,), g.q_mods, n)),
+    ]
+    for label, params, batch in (("bench.n8192", BENCH_N8192, 2),
+                                 ("bench.n1024", BENCH_N1024, 4)):
+        ctx = BfvContext(params)
+        mods = ctx.q_mods + ctx.Bsk
+        fold = [params.t] * len(mods)
+        plain = (fsm.build_mxu_tables(mods, ctx.n, "cuda"),
+                 nttm.build_tables(mods, ctx.n, "cuda"))
+        folded = (fsm.build_mxu_tables(mods, ctx.n, "cuda",
+                                       n_inv_factors=fold),
+                  nttm.build_tables(mods, ctx.n, "cuda", n_inv_factors=fold))
+        for what, name, tables, back in ((" q+bsk", "ntt", plain, True),
+                                         (" q+bsk, t folded", "intt", folded,
+                                          False),
+                                         (" q+bsk", "intt", plain, True)):
+            cases.append((label + what, name, *tables, back,
+                          ntt_rows(rng, (batch, 2), mods, ctx.n)))
+    return cases
+
+
+def four_step_kernel_checks(eng4: TorchEngine, eng: TorchEngine, rng,
+                            rows: dict, checks: dict) -> None:
+    """Kernel 8 (``four_step_ntt`` / ``four_step_intt``, one launch) and
+    kernel 9 (``four_step_phase``, the two-launch transform) at every shape
+    of ``four_step_cases``, each against the plain version and against the
+    butterfly kernels on the same input, and there and back again; then
+    kernel 9 alone in its three modes at the main path's shape.  Fills the
+    three kernels' rows and checks."""
+    fused = {"ntt": fsm.ntt, "intt": fsm.intt}
+    two = {"ntt": fsm.ntt_two_launch, "intt": fsm.intt_two_launch}
+    plain = {"ntt": fsm.ntt_plain, "intt": fsm.intt_plain}
+    bfly = {"ntt": nttm.ntt, "intt": nttm.intt}
+    back = {"ntt": "intt", "intt": "ntt"}
+    for name in fsm.KERNEL_NAMES:
+        checks[name] = {"name": name, "mismatches": 0, "cases": []}
+    max_err = {name: 0 for name in fsm.KERNEL_NAMES}
+    main_input = None
+    for label, d, tb, btb, there_and_back, x in four_step_cases(eng4, eng,
+                                                                rng):
+        want = plain[d](x, tb)
+        if count_diff(want, bfly[d](x, btb)):
+            raise AssertionError(f"{label}: the plain four-step {d} differs "
+                                 "from the butterfly kernel")
+        k8 = "four_step_" + d
+        for name, fn in ((k8, fused[d]), ("four_step_phase", two[d])):
+            got = fn(x, tb)
+            mism, err = mismatch(got, want)
+            mism += count_diff(got, bfly[d](x, btb))
+            if there_and_back:
+                other = fused if name == k8 else two
+                mism += count_diff(other[back[d]](got, tb), x)
+            case = {"case": label, "direction": d, "shape": list(x.shape),
+                    "contiguous": x.is_contiguous(), "mismatches": mism}
+            if tb.n == 4096 and name != k8:
+                case["ms_two_launch"] = cold_ms(fn, (x,), tb)
+            checks[name]["mismatches"] += mism
+            checks[name]["cases"].append(case)
+            max_err[name] = max(max_err[name], err)
+            del got
+        if k8 not in rows:            # the first case of each direction
+            nbytes, imads, int8_ops = four_step_work(k8, x, tb)
+            rows[k8], terms = timed_row(k8, fused[d], plain[d], (x,), tb,
+                                        nbytes, imads, 0, int8_ops)
+            checks[k8].update(terms)
+            checks[k8]["cases"][-1]["ms"] = rows[k8]["ms"]
+            if main_input is None:
+                main_input = (x, tb)
+        elif tb.n == 4096:
+            checks[k8]["cases"][-1]["ms"] = cold_ms(fused[d], (x,), tb)
+        del want
+
+    # kernel 9 alone: the forward's operand, (B, 2, nb, R, C), every mode
+    x, tb = main_input
+    m = x.view(x.shape[:-1] + (tb.R, tb.C))
+    grid = (tb.T, tb.T_shoup)
+    for mode in fsm.PHASE_MODES:
+        g = None if mode == "none" else grid
+
+        def kern(v, t, mode=mode, g=g):
+            return fsm.phase(v, t.A_dig, g, mode, t)
+
+        def ref(v, t, mode=mode, g=g):
+            return fsm.phase_plain(v, t.A_dig, g, mode, t)
+        _, mism, err = compare(kern, ref, (m,), tb)
+        checks["four_step_phase"]["mismatches"] += mism
+        checks["four_step_phase"]["cases"].append(
+            {"case": f"phase {mode}, prepare q+bsk", "shape": list(m.shape),
+             "mismatches": mism})
+        max_err["four_step_phase"] = max(max_err["four_step_phase"], err)
+        if mode == "pre":            # the row of the kernels line
+            nbytes, imads, int8_ops = four_step_work("four_step_phase", m,
+                                                     tb)
+            rows["four_step_phase"], terms = timed_row(
+                "four_step_phase", kern, ref, (m,), tb, nbytes, imads, 0,
+                int8_ops)
+            checks["four_step_phase"].update(terms)
+    for name in fsm.KERNEL_NAMES:
+        rows[name]["max_abs_err"] = max_err[name]
+
+
 def io_bytes(inputs, out) -> int:
     """Each input word read once, each output word written once."""
     return 8 * (sum(x.numel() for x in inputs) + out.numel())
 
 
-def compare(kern, plain, inputs, c):
-    got = kern(*inputs, c)
-    want = plain(*inputs, c)
+def mismatch(got: torch.Tensor, want: torch.Tensor):
+    """(words that differ, largest difference) of a kernel's output."""
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype or not got.is_cuda:
         raise AssertionError("kernel output differs in shape, type or device")
-    diff = got != want
-    mism = int(diff.sum().item())
-    max_err = int((got - want).abs().max().item()) if mism else 0
-    return got, mism, max_err
+    mism = count_diff(got, want)
+    return mism, int((got - want).abs().max().item()) if mism else 0
 
 
-def timed_row(name, kern, plain, inputs, c, nbytes, imads, max_err):
-    """One row of the last ``kernels`` line and the two terms of its bound."""
+def count_diff(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a != b).sum().item())
+
+
+def compare(kern, plain, inputs, c):
+    got = kern(*inputs, c)
+    return (got, *mismatch(got, plain(*inputs, c)))
+
+
+def timed_row(name, kern, plain, inputs, c, nbytes, imads, max_err,
+              int8_ops=0):
+    """One row of the last ``kernels`` line and the terms of its bound.  The
+    operations term is the larger of the integer pipe's (`imads`) and the
+    tensor cores' (`int8_ops`): the two run side by side."""
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = imads / PEAK_IMAD_PER_S * 1e3
+    imad_ms = imads / PEAK_IMAD_PER_S * 1e3
+    tensor_ms = int8_ops / PEAK_INT8_OPS_PER_S * 1e3
+    ops_ms = max(imad_ms, tensor_ms)
     row = {
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": 0,
@@ -331,16 +496,39 @@ def timed_row(name, kern, plain, inputs, c, nbytes, imads, max_err):
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+        "bytes_bound_ms": bytes_ms, "operations_bound_ms": ops_ms,
         "same_buffers_ms": cuda_ms(lambda i: kern(*inputs, c)),
         "path_ms": None, "launches_round_trip": 0,
     }
-    terms = {"bytes": nbytes, "imads": imads, "bytes_bound_ms": bytes_ms,
-             "operations_bound_ms": ops_ms,
+    terms = {"bytes": nbytes, "imads": imads, "int8_ops": int8_ops,
+             "bytes_bound_ms": bytes_ms, "operations_bound_ms": ops_ms,
+             "integer_pipe_ms": imad_ms, "tensor_core_ms": tensor_ms,
              "host_issue_ms": host_ms(lambda i: kern(*inputs, c))}
     return row, terms
 
 
-def phase_kernels(eng: TorchEngine, rng):
+def four_step_work(name: str, x: torch.Tensor, tb: fsm.MxuNttTables):
+    """(bytes, 32-bit multiply-adds, int8 tensor-core operations) of one
+    launch on `x`, as csrc/four_step.cu does the work; a phase launch with
+    its grid.  Bytes: each input and output word once, the limbs' digit
+    planes, grid and scalars once.  Tensor cores: 25 digit-pair products of
+    each multiply-add of each matrix product, two operations each.  Integer
+    pipe: for each output of each product a Barrett step and a Shoup product
+    (the recombination), and one Shoup product a word for the grid."""
+    if name == "four_step_phase":
+        K, J = x.shape[-2:]
+        n, depth, products, weights = K * J, K, 1, 5 * K * K
+    else:
+        n, depth, products = tb.n, tb.R + tb.C, 2
+        weights = 5 * (tb.R ** 2 + tb.C ** 2)
+    rows = x.numel() // n
+    nbytes = 16 * x.numel() + tb.p.shape[0] * (weights + 16 * n + 32)
+    imads = rows * n * (products * (BARRETT + SHOUP) + SHOUP)
+    int8_ops = 2 * 25 * rows * n * depth
+    return nbytes, imads, int8_ops
+
+
+def phase_kernels(eng: TorchEngine, eng4: TorchEngine, rng):
     """Kernel against plain version on the card.  The tail kernels at the
     main path's shapes on testnet.one and at a small batch on bench.n8192
     (other limb counts); the NTT kernels at every shape of ``ntt_cases``,
@@ -397,6 +585,7 @@ def phase_kernels(eng: TorchEngine, rng):
         checks[name]["cases"].append(case)
     for name in nttm.KERNEL_NAMES:
         rows[name]["max_abs_err"] = checks[name].pop("max_abs_err")
+    four_step_kernel_checks(eng4, eng, rng, rows, checks)
     return rows, checks
 
 
@@ -441,35 +630,47 @@ def phase_main_path(eng: TorchEngine, rows: dict, keys) -> dict:
     torch.cuda.synchronize()
     counts = launch_counts()
 
+    check_mul_relin(eng, out, single, keys, cts, "main path")
+    # one batched _mul_relin and one single-ciphertext mul_relin
+    expected = expected_counts(
+        {name: 2 * calls for name, calls in CALLS_PER_MUL_RELIN.items()})
+    if counts != expected:
+        raise AssertionError(f"launch counts {counts}, expected {expected}")
+    for name in CALLS_PER_MUL_RELIN:
+        rows[name]["launches"] = counts[name]
+    return {"phase": "main_path", "ok": True, "preset": "testnet.one",
+            "batch": BATCH, "distinct_pairs_checked": DISTINCT,
+            "rows_equal_to_golden": BATCH, "decrypt_ok": True,
+            "launches": counts, "output_device": str(out.device),
+            "inputs": (a, b, rk), "host_cts": cts}
+
+
+def check_mul_relin(eng: TorchEngine, out: torch.Tensor, single: Ciphertext,
+                    keys, cts, label: str) -> None:
+    """Every row of a B = 128 ``_mul_relin`` (operands ``cts`` tiled, the
+    second rotated by one) and one single-ciphertext ``mul_relin`` against
+    the host golden model, and the first rows by decryption."""
+    ctx, prm = eng.golden, eng.params
+    pk, sk, plains = keys
     if not out.is_cuda or tuple(out.shape) != (BATCH, 2, ctx.k, ctx.n):
-        raise AssertionError(f"main path output: {out.device} {out.shape}")
+        raise AssertionError(f"{label} output: {out.device} {out.shape}")
     got = convert.to_numpy(out)
     for i in range(DISTINCT):
         j = (i - 1) % DISTINCT
         want = ctx.mul_relin(cts[i], cts[j], pk.relin)
         for row in range(i, BATCH, DISTINCT):
             if not np.array_equal(got[row], want.data):
-                raise AssertionError(f"row {row} differs from the host golden "
-                                     "mul_relin")
+                raise AssertionError(f"{label}: row {row} differs from the "
+                                     "host golden mul_relin")
         dec = ctx.decrypt(Ciphertext(prm, got[i]), sk)
         if not np.array_equal(
                 dec, negacyclic_mul_mod_t(plains[i], plains[j], prm.t)):
-            raise AssertionError(f"row {i} does not decrypt to the product")
+            raise AssertionError(f"{label}: row {i} does not decrypt to the "
+                                 "product")
     if not np.array_equal(single.data,
                           ctx.mul_relin(cts[0], cts[1], pk.relin).data):
-        raise AssertionError("single-ciphertext mul_relin differs from the "
-                             "host golden model")
-    # one batched _mul_relin and one single-ciphertext mul_relin
-    expected = {name: 2 * calls for name, calls in CALLS_PER_MUL_RELIN.items()}
-    if counts != expected:
-        raise AssertionError(f"launch counts {counts}, expected {expected}")
-    for name, n_launch in counts.items():
-        rows[name]["launches"] = n_launch
-    return {"phase": "main_path", "ok": True, "preset": "testnet.one",
-            "batch": BATCH, "distinct_pairs_checked": DISTINCT,
-            "rows_equal_to_golden": BATCH, "decrypt_ok": True,
-            "launches": counts, "output_device": str(out.device),
-            "inputs": (a, b, rk), "host_cts": cts}
+        raise AssertionError(f"{label}: single-ciphertext mul_relin differs "
+                             "from the host golden model")
 
 
 def boundary_ciphertext(ctx: BfvContext) -> Ciphertext:
@@ -565,12 +766,12 @@ def phase_round_trip(eng: TorchEngine, rows: dict, keys, host_cts) -> dict:
     counts = launch_counts()
     expected = {name: 2 * calls for name, calls in CALLS_PER_MUL_RELIN.items()}
     expected["mod_down"] = expected["relin_dot"] = 1    # _multiply stops early
-    expected.update(ROUND_TRIP_NTT_CALLS)
+    expected = expected_counts({**expected, **ROUND_TRIP_NTT_CALLS})
     if counts != expected:
         raise AssertionError(f"round trip launch counts {counts}, expected "
                              f"{expected}")
-    for name, n_launch in counts.items():
-        rows[name]["launches_round_trip"] = n_launch
+    for name in CALLS_PER_MUL_RELIN:
+        rows[name]["launches_round_trip"] = counts[name]
 
     # times at B = 128, inputs on the card: the device part of encrypt_batch
     # (everything after the host's sampling and the transfer) and
@@ -608,15 +809,21 @@ def phase_round_trip(eng: TorchEngine, rows: dict, keys, host_cts) -> dict:
 NTT_LABELS = ("ntt_all", "ntt_key", "intt_all", "intt_key")
 
 
-def staged_mul_relin(eng: TorchEngine, a, b, rk, ntt=nttm.ntt,
-                     intt=nttm.intt):
+def engine_transforms(eng: TorchEngine) -> dict:
+    """The engine's four transforms of ``_mul_relin`` by staged label."""
+    return {"ntt_all": eng._ntt_all, "intt_all": eng._intt_all_t,
+            "ntt_key": eng._ntt_key, "intt_key": eng._intt_key}
+
+
+def staged_mul_relin(eng: TorchEngine, a, b, rk, transforms=None):
     """The steps of ``_mul_relin`` one by one (as ``ops/behz.py`` runs them)
     with a CUDA event before each.  Returns the result and the milliseconds
     spent under each label; the NTTs over q and Bsk and those over the key
     primes have labels of their own, because their launches differ in size.
-    `ntt` / `intt` may be the plain versions, to time the path as it was
-    before the kernels."""
+    `transforms` (label -> callable, the engine's own by default) may be
+    plain versions, to time the path as it was before the kernels."""
     bz, c = eng.behz, eng.consts
+    f = transforms or engine_transforms(eng)
     marks = []
 
     def mark(label):
@@ -628,25 +835,25 @@ def staged_mul_relin(eng: TorchEngine, a, b, rk, ntt=nttm.ntt,
     mark("to_bsk_ext")
     ea = tail.to_bsk_ext(a, c)
     mark("ntt_all")
-    fa = ntt(ea, bz.tb_all)
+    fa = f["ntt_all"](ea)
     mark("to_bsk_ext")
     eb = tail.to_bsk_ext(b, c)
     mark("ntt_all")
-    fb = ntt(eb, bz.tb_all)
+    fb = f["ntt_all"](eb)
     mark("dyadic")
     stacked = tail.dyadic(fa, fb, c)
     mark("intt_all")
-    tq = intt(stacked, bz.tb_all_t)
+    tq = f["intt_all"](stacked)
     mark("floor_sk")
     ct3 = tail.floor_sk(tq, c)
     mark("digit_lift")
     d = csub_reduce(ct3[:, 2, :, None, :], c.key, bz.steps_ct_mod_key)
     mark("ntt_key")
-    d_ntt = ntt(d, bz.tb_key)
+    d_ntt = f["ntt_key"](d)
     mark("relin_dot")
     acc_ntt = tail.relin_dot(d_ntt, rk, c)
     mark("intt_key")
-    acc = intt(acc_ntt, bz.tb_key)
+    acc = f["intt_key"](acc_ntt)
     mark("mod_down")
     out = tail.mod_down(acc, ct3[:, :2], c)
     mark("end")
@@ -655,6 +862,21 @@ def staged_mul_relin(eng: TorchEngine, a, b, rk, ntt=nttm.ntt,
     for (label, ev), (_, nxt) in zip(marks, marks[1:]):
         ms[label] = ms.get(label, 0.0) + ev.elapsed_time(nxt)
     return out, ms
+
+
+def staged_medians(eng: TorchEngine, inputs, want, runs: int,
+                   transforms=None) -> dict:
+    """Median milliseconds of each label over `runs` staged runs, each run's
+    result held against `want`."""
+    a, b, rk = inputs
+    all_ms = []
+    for _ in range(runs):
+        out, ms = staged_mul_relin(eng, a, b, rk, transforms)
+        if not torch.equal(out, want):
+            raise AssertionError("a staged run differs from _mul_relin")
+        all_ms.append(ms)
+    return {label: statistics.median(r[label] for r in all_ms)
+            for label in all_ms[0]}
 
 
 def phase_timing(eng: TorchEngine, inputs, card: str, rows: dict) -> dict:
@@ -680,14 +902,7 @@ def phase_timing(eng: TorchEngine, inputs, card: str, rows: dict) -> dict:
             "host_issue_ms": host_ms(lambda i: eng._mul_relin(xa, xb, rk),
                                      reps=5)}
 
-    runs = []
-    for _ in range(5):
-        out, ms = staged_mul_relin(eng, a, b, rk)
-        if not torch.equal(out, want):
-            raise AssertionError("the staged run differs from _mul_relin")
-        runs.append(ms)
-    stage_ms = {label: statistics.median(r[label] for r in runs)
-                for label in runs[0]}
+    stage_ms = staged_medians(eng, inputs, want, 5)
     staged_total = sum(stage_ms.values())
     tail_ms = sum(stage_ms[name] for name in tail.KERNEL_NAMES)
     ntt_ms = sum(stage_ms[label] for label in NTT_LABELS)
@@ -699,17 +914,14 @@ def phase_timing(eng: TorchEngine, inputs, card: str, rows: dict) -> dict:
     rows["intt"]["path_ms"] = stage_ms["intt_all"]
 
     # the same batch as it ran before the NTT kernels: plain stage loops
-    plain_runs = []
-    for _ in range(3):
-        out, ms = staged_mul_relin(eng, a, b, rk, ntt=nttm.ntt_plain,
-                                   intt=nttm.intt_plain)
-        if not torch.equal(out, want):
-            raise AssertionError("the run with the plain NTTs differs from "
-                                 "_mul_relin")
-        plain_runs.append(ms)
-    plain_total = statistics.median(sum(r.values()) for r in plain_runs)
-    plain_ntt = statistics.median(sum(r[label] for label in NTT_LABELS)
-                                  for r in plain_runs)
+    tb = {stack: t.tables for stack, t in eng.ntts.items()}
+    plain = {"ntt_all": lambda x: nttm.ntt_plain(x, tb["all"]),
+             "intt_all": lambda x: nttm.intt_plain(x, tb["all_t"]),
+             "ntt_key": lambda x: nttm.ntt_plain(x, tb["key"]),
+             "intt_key": lambda x: nttm.intt_plain(x, tb["key"])}
+    plain_ms = staged_medians(eng, inputs, want, 3, plain)
+    plain_total = sum(plain_ms.values())
+    plain_ntt = sum(plain_ms[label] for label in NTT_LABELS)
     return {"phase": "timing", "ok": True, "card": card, "batch": BATCH,
             "ms_per_batch_median": batch_ms, "ms_per_batch_all": times,
             "mul_relin_per_s": BATCH / batch_ms * 1e3,
@@ -719,6 +931,160 @@ def phase_timing(eng: TorchEngine, inputs, card: str, rows: dict) -> dict:
             "tail_kernels_share": tail_ms / staged_total,
             "plain_ntt_staged_total_ms": plain_total,
             "plain_ntt_ms": plain_ntt}
+
+
+def staged_two_launch(x: torch.Tensor, tb: fsm.MxuNttTables):
+    """``fsm.ntt_two_launch`` step by step with a CUDA event before each, as
+    ``staged_mul_relin`` does: the result and the milliseconds of the two
+    launches of kernel 9 and of the two torch transposes."""
+    marks = []
+
+    def mark(label):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((label, ev))
+
+    hold_device(1.0)
+    mark("phase_none")
+    y = fsm.phase(x.view(x.shape[:-1] + (tb.R, tb.C)), tb.A_dig, None,
+                  "none", tb)
+    mark("transpose")
+    yt = y.transpose(-1, -2).contiguous()
+    mark("phase_pre")
+    zt = fsm.phase(yt, tb.B0_dig, (tb.TT, tb.TT_shoup), "pre", tb)
+    mark("transpose_back")
+    out = zt.transpose(-1, -2).reshape(x.shape)
+    mark("end")
+    torch.cuda.synchronize()
+    return out, {label: ev.elapsed_time(nxt)
+                 for (label, ev), (_, nxt) in zip(marks, marks[1:])}
+
+
+def phase_four_step_path(eng4: TorchEngine, eng: TorchEngine, rows: dict,
+                         keys, host_cts, inputs, card: str) -> dict:
+    """``TorchEngine(TESTNET_ONE, ntt_backend="four_step")`` on the card,
+    each path with the launch counters set to 0 before it and read after:
+    (1) ``_mul_relin`` at B = 128 and one single-ciphertext ``mul_relin``
+    against the host golden model and the default engine's bytes; (2) the
+    round trip encrypt_batch -> _mul_relin / _multiply -> decrypt_batch
+    (sizes 2 and 3) against the host model; (3) the two-launch transform
+    (``FourStepNtt(fused=False)``, kernel 9) there and back on the prepared
+    operand.  Then the batch time beside the default engine's (median of 12
+    each, in turns), and the steps of the four-step batch one by one."""
+    ctx, prm = eng4.golden, eng4.params
+    pk, sk, plains = keys
+    a, b, rk = inputs
+    want = eng._mul_relin(a, b, rk)
+
+    reset_launch_counts()
+    out = eng4._mul_relin(a, b, rk)
+    single = eng4.mul_relin(host_cts[0], host_cts[1], pk.relin)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_mul_relin(eng4, out, single, keys, host_cts, "four-step path")
+    if not torch.equal(out, want):
+        raise AssertionError("the four-step engine's _mul_relin differs from "
+                             "the default engine's")
+    expected = expected_counts({name: 2 * calls for name, calls
+                                in FOUR_STEP_CALLS_PER_MUL_RELIN.items()})
+    if counts != expected:
+        raise AssertionError(f"four-step launch counts {counts}, expected "
+                             f"{expected}")
+    for name in ("four_step_ntt", "four_step_intt"):
+        rows[name]["launches"] = counts[name]
+
+    # the round trip
+    reset_launch_counts()
+    seeds = [seed_of(i % DISTINCT) for i in range(BATCH)]
+    cts = eng4.encrypt_batch(np.tile(plains, (BATCH // DISTINCT, 1)), pk,
+                             seeds)
+    other = torch.roll(cts, 1, dims=0)
+    out2 = eng4._mul_relin(cts, other, rk)
+    out3 = eng4._multiply(cts, other)
+    dec2 = eng4.decrypt_batch(out2, sk)
+    dec3 = eng4.decrypt_batch(out3, sk)
+    torch.cuda.synchronize()
+    counts_rt = launch_counts()
+    enc = convert.to_numpy(cts)
+    host2, host3 = convert.to_numpy(out2), convert.to_numpy(out3)
+    got2, got3 = convert.to_numpy(dec2), convert.to_numpy(dec3)
+    for row in range(BATCH):
+        i = row % DISTINCT
+        product = negacyclic_mul_mod_t(plains[i], plains[(i - 1) % DISTINCT],
+                                       prm.t)
+        ok = (np.array_equal(enc[row], host_cts[i].data)
+              and np.array_equal(got2[row], product)
+              and np.array_equal(got3[row], product))
+        if row < DISTINCT:
+            ok = ok and np.array_equal(
+                got2[row], ctx.decrypt(Ciphertext(prm, host2[row]), sk)
+            ) and np.array_equal(
+                got3[row], ctx.decrypt(Ciphertext(prm, host3[row]), sk))
+        if not ok:
+            raise AssertionError(f"four-step round trip: row {row} differs "
+                                 "from the host golden model")
+    expected = {name: 2 * calls for name, calls in CALLS_PER_MUL_RELIN.items()
+                if name in tail.KERNEL_NAMES}
+    expected["mod_down"] = expected["relin_dot"] = 1    # _multiply stops early
+    expected = expected_counts({**expected, **FOUR_STEP_ROUND_TRIP_CALLS})
+    if counts_rt != expected:
+        raise AssertionError(f"four-step round trip launch counts "
+                             f"{counts_rt}, expected {expected}")
+    for name in FOUR_STEP_ROUND_TRIP_CALLS:
+        rows[name]["launches_round_trip"] = counts_rt[name]
+
+    # the two-launch transform on the prepared operand, there and back
+    ext = tail.to_bsk_ext(a, eng4.consts)
+    fused = eng4._ntt_all(ext)
+    g = eng4.golden
+    two = fsm.FourStepNtt(g.q_mods + g.Bsk, g.n, eng4.device, fused=False)
+    reset_launch_counts()
+    y2 = two.ntt(ext)
+    back = two.intt(y2)
+    torch.cuda.synchronize()
+    counts_two = launch_counts()
+    if not (torch.equal(y2, fused) and torch.equal(back, ext)):
+        raise AssertionError("the two-launch transform differs from the "
+                             "one-launch transform")
+    if counts_two != expected_counts({"four_step_phase": 4}):
+        raise AssertionError(f"two-launch counts {counts_two}")
+    rows["four_step_phase"]["launches"] = counts_two["four_step_phase"]
+    two_runs = []
+    for _ in range(5):
+        y, ms = staged_two_launch(ext, two.tables)
+        if not torch.equal(y, fused):
+            raise AssertionError("the staged two-launch run differs")
+        two_runs.append(ms)
+    two_ms = {label: statistics.median(r[label] for r in two_runs)
+              for label in two_runs[0]}
+    rows["four_step_phase"]["path_ms"] = two_ms["phase_pre"]
+
+    # batch times, default and four-step in turns
+    times = {"default": [], "four_step": []}
+    for name, e in (("default", eng), ("four_step", eng4),
+                    ("four_step", eng4), ("default", eng)):
+        times[name] += call_times(lambda: e._mul_relin(a, b, rk), 6)
+    batch_ms = statistics.median(times["four_step"])
+    stage_ms = staged_medians(eng4, inputs, want, 5)
+    staged_total = sum(stage_ms.values())
+    rows["four_step_ntt"]["path_ms"] = stage_ms["ntt_all"] / 2
+    rows["four_step_intt"]["path_ms"] = stage_ms["intt_all"]
+    return {"phase": "four_step_path", "ok": True, "card": card,
+            "preset": "testnet.one", "batch": BATCH,
+            "rows_equal_to_golden": BATCH, "equal_to_default_engine": True,
+            "launches": counts, "round_trip_ok": True,
+            "round_trip_launches": counts_rt,
+            "two_launch_ok": True, "two_launch_launches": counts_two,
+            "two_launch_staged_ms": two_ms,
+            "ms_per_batch_median": batch_ms,
+            "ms_per_batch_all": times["four_step"],
+            "mul_relin_per_s": BATCH / batch_ms * 1e3,
+            "default_ms_per_batch_median": statistics.median(
+                times["default"]),
+            "default_ms_per_batch_all": times["default"],
+            "staged_ms": stage_ms, "staged_total_ms": staged_total,
+            "ntt_kernels_share": sum(stage_ms[label] for label in NTT_LABELS)
+            / staged_total}
 
 
 def main() -> int:
@@ -750,7 +1116,8 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     eng = TorchEngine(TESTNET_ONE)            # default device: the card
-    rows, checks = phase_kernels(eng, np.random.default_rng(SEED))
+    eng4 = TorchEngine(TESTNET_ONE, ntt_backend="four_step")
+    rows, checks = phase_kernels(eng, eng4, np.random.default_rng(SEED))
     emit({"phase": "kernels", "ok": True, "card": card, "tolerance": 0,
           "kernels": list(checks.values())})
     bad = [n for n, r in checks.items()
@@ -764,6 +1131,7 @@ def main() -> int:
     emit(main_path)
     emit(phase_round_trip(eng, rows, keys, host_cts))
     emit(phase_timing(eng, inputs, card, rows))
+    emit(phase_four_step_path(eng4, eng, rows, keys, host_cts, inputs, card))
 
     print(card, flush=True)
     emit({"kernels": [rows[name] for name in KERNEL_NAMES]})

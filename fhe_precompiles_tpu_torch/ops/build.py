@@ -71,6 +71,16 @@ def _set_argtypes(lib) -> None:
     lib.fhe_ntt_inverse.argtypes = [vp, vp, ll, i, i, ll, vp, vp, vp, vp, vp,
                                     vp]
     lib.fhe_ntt_inverse.restype = i
+    # four_step.cu: in, out, rows, L, R, C, group stride, limb scalars, the
+    # r- and c-product digit planes, grid and its Shoup words, inverse, stream
+    lib.fhe_four_step_ntt.argtypes = [vp, vp, ll, i, i, i, ll, vp, vp, vp, vp,
+                                      vp, i, vp]
+    lib.fhe_four_step_ntt.restype = i
+    # in, out, rows, L, K, J, group stride, limb scalars, digit planes, grid
+    # and its Shoup words (None for mode 0), mode, stream
+    lib.fhe_four_step_phase.argtypes = [vp, vp, ll, i, i, i, ll, vp, vp, vp,
+                                        vp, i, vp]
+    lib.fhe_four_step_phase.restype = i
 
 
 def load_library(verbose: bool = False):

@@ -11,9 +11,16 @@ Layouts (the JAX engine's):
   relin keys  int64 (k, 2, k_key, n)     NTT form
   prepared    int64 (B, 2, nb, n)        NTT form over q u Bsk
 
-Every NTT goes through the wrappers of ``ops/ntt.py`` and the five BEHZ
-segments through those of ``ops/tail.py``: CUDA kernels on the card, plain
-versions on the CPU.  What lies between them here (additions, the Delta
+Every NTT goes through the transforms of the NTT backend the caller names,
+and the five BEHZ segments through the wrappers of ``ops/tail.py``: CUDA
+kernels on the card, plain versions on the CPU.  ``ntt_backend`` is
+"butterfly" (the default: ``ops/ntt.py``, the counterpart of the JAX
+engine's "pair" backend) or "four_step" (``ops/four_step.py``, digit matrix
+products on the tensor cores: the counterpart of its "pallas" backend).  As
+in ``JaxEngine`` the engine holds each transform as a callable:
+``_ntt_q`` / ``_intt_q`` (encrypt, decrypt, ``_mul_plain``), ``_ntt_all``
+and ``_intt_all_t`` (the multiply), ``_ntt_key`` / ``_intt_key`` (the
+relinearization).  What lies between them here (additions, the Delta
 scaling, the products with the secret key, the exact rounding of decrypt) is
 plain torch arithmetic, as the reference leaves it to its compiler.
 
@@ -36,9 +43,15 @@ from ..sampling import (Blake2Xof, DOMAIN_ERROR, DOMAIN_TERNARY, sample_cbd,
                         sample_ternary)
 from .behz import Behz
 from .modmath import addmod, csub_reduce, mulmod, negmod, submod
-from .ntt import build_tables, intt, ntt
+from .four_step import FourStepNtt
+from .ntt import ButterflyNtt
 from .tail import TailConstants
 from .wide import ExactScaleRound
+
+
+# the transforms of each ``ntt_backend``: classes with ``ntt`` / ``intt``
+# taking (moduli, n, device, n_inv_factors=...)
+NTT_BACKENDS = {"butterfly": ButterflyNtt, "four_step": FourStepNtt}
 
 
 def pad_rows(x: torch.Tensor, target: int) -> torch.Tensor:
@@ -55,7 +68,11 @@ class TorchEngine:
     """All batched BFV operations for one parameter set on one device."""
 
     def __init__(self, params: Params, device="cuda",
-                 golden: Optional[BfvContext] = None):
+                 golden: Optional[BfvContext] = None,
+                 ntt_backend: str = "butterfly"):
+        if ntt_backend not in NTT_BACKENDS:
+            raise ValueError(f"unknown ntt_backend {ntt_backend!r}")
+        self.ntt_backend = ntt_backend
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -68,24 +85,35 @@ class TorchEngine:
         self.nb = g.k + len(g.Bsk)
         dev = self.device
 
+        transform = NTT_BACKENDS[ntt_backend]
         all_mods = g.q_mods + g.Bsk
-        tb_all = build_tables(all_mods, g.n, dev)
         # mul_core's inverse transform folds the FastFloor pre-scale t and,
         # for the q limbs, the FastBconv q_hat_inv scalar into n^-1
         qh_t = [params.t * int(g.q_hat_inv[i]) % int(p)
                 for i, p in enumerate(g.q_mods)]
-        tb_all_t = build_tables(all_mods, g.n, dev,
-                                n_inv_factors=qh_t + [params.t] * len(g.Bsk))
         has_ks = params.special_modulus is not None
-        tb_key = build_tables(g.key_mods, g.n, dev) if has_ks else None
+        # one transform object per stack of moduli: q (encrypt, decrypt,
+        # mul_plain), q u Bsk forward and inverse with the fold, key primes
+        self.ntts = {
+            "q": transform(g.q_mods, g.n, dev),
+            "all": transform(all_mods, g.n, dev),
+            "all_t": transform(all_mods, g.n, dev,
+                               n_inv_factors=qh_t + [params.t] * len(g.Bsk)),
+            "key": transform(g.key_mods, g.n, dev) if has_ks else None,
+        }
+        self._ntt_q, self._intt_q = self.ntts["q"].ntt, self.ntts["q"].intt
+        self._ntt_all = self.ntts["all"].ntt
+        self._intt_all_t = self.ntts["all_t"].intt
+        self._ntt_key, self._intt_key = (
+            (self.ntts["key"].ntt, self.ntts["key"].intt) if has_ks
+            else (None, None))
         # c2 residues are < max(q); this many conditional subtracts reduce
         # them mod every key prime
         steps = max((max(g.q_mods) - 1) // p for p in g.key_mods)
         self.consts = TailConstants(g, dev)
-        self.behz = Behz(self.consts, tb_all, tb_all_t, tb_key, steps)
+        self.behz = Behz(self.consts, self._ntt_all, self._intt_all_t,
+                         self._ntt_key, self._intt_key, steps)
 
-        # ---- the q stack: encrypt, decrypt, mul_plain --------------------
-        self.tb_q = build_tables(g.q_mods, g.n, dev)
         self.q_mods = self.consts.q                       # (k, 1)
         if params.t * params.t >= 1 << 63:
             raise ValueError("plain modulus too large for the int64 carrier")
@@ -148,10 +176,10 @@ class TorchEngine:
         # in memory, so the copy is made here, in the open
         m_rns = csub_reduce(m[..., None, :], self.q_mods,
                             self.steps_t_mod_q).contiguous()
-        m_ntt = ntt(m_rns, self.tb_q)
-        c_ntt = ntt(ct, self.tb_q)
+        m_ntt = self._ntt_q(m_rns)
+        c_ntt = self._ntt_q(ct)
         out = mulmod(c_ntt, m_ntt[..., None, :, :], self.q_mods)
-        return intt(out, self.tb_q)
+        return self._intt_q(out)
 
     # ==================================================================
     # BEHZ multiply and relinearization
@@ -201,11 +229,11 @@ class TorchEngine:
             acc = None
             cur = s_ntt
             for comp in range(1, size):
-                term = mulmod(ntt(ct[:, comp], self.tb_q), cur, self.q_mods)
+                term = mulmod(self._ntt_q(ct[:, comp]), cur, self.q_mods)
                 acc = term if acc is None else addmod(acc, term, self.q_mods)
                 if comp + 1 < size:
                     cur = mulmod(cur, s_ntt, self.q_mods)
-            dot = addmod(ct[:, 0], intt(acc, self.tb_q), self.q_mods)
+            dot = addmod(ct[:, 0], self._intt_q(acc), self.q_mods)
             return self._exact_round(mulmod(dot, self.q_hat_inv, self.q_mods))
         return f
 
@@ -232,9 +260,9 @@ class TorchEngine:
                       pk_ct: torch.Tensor) -> torch.Tensor:
         """u/e*: (B, k, n) lifted signed samples; m: (B, n) mod t;
         pk_ct: (2, k, n) = first k limbs of the public key (NTT form)."""
-        u_ntt = ntt(u_rns, self.tb_q)
-        c0 = intt(mulmod(u_ntt, pk_ct[0], self.q_mods), self.tb_q)
-        c1 = intt(mulmod(u_ntt, pk_ct[1], self.q_mods), self.tb_q)
+        u_ntt = self._ntt_q(u_rns)
+        c0 = self._intt_q(mulmod(u_ntt, pk_ct[0], self.q_mods))
+        c1 = self._intt_q(mulmod(u_ntt, pk_ct[1], self.q_mods))
         dm = self._scaled_plain(m)
         c0 = addmod(addmod(c0, e0_rns, self.q_mods), dm, self.q_mods)
         c1 = addmod(c1, e1_rns, self.q_mods)

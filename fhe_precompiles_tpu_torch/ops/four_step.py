@@ -1,0 +1,482 @@
+"""Four-step negacyclic NTT on digit matrix products: the tables, two CUDA
+kernels, their wrappers and their plain PyTorch versions.
+
+The port's copy of ``fhe_precompiles_tpu/ops/mxu_ntt.py`` (tables and plain
+transform) and the counterpart of ``fhe_precompiles_tpu/ops/pallas_ntt.py``
+(kernels).  The bit-reversed NTT of size n = R * C factors exactly as
+
+    NTT(x)  = (T (*) (A @ M)) @ B0^T          M = x.reshape(R, C)
+    iNTT(y) = A' @ (T' (*) (N @ B0'^T))       N = y.reshape(R, C)
+
+with A (R x R) the cross-row stages, B0 (C x C) the in-row stages and T an
+(R x C) twiddle grid, all derived numerically per modulus from the golden
+stage loop; n^-1, times the caller's per-limb factor, is folded into A'.
+Every matrix entry (< p < 2^37) is split into NDIG = 5 base-256 digits, each
+product into 25 digit-pair products that are summed exactly, and the sums
+recombine mod p.  All of it is exact integer arithmetic, so the transform
+gives the bytes of ``ops/ntt.py`` (and of the golden model).
+
+  ==============  ===============================================  ===========
+  wrapper         replaces (fhe_precompiles_tpu/ops/pallas_ntt.py)  plain
+  ==============  ===============================================  ===========
+  ntt             PallasNtt._fused_call / _fused_kernel_factory     ntt_plain
+                  (inverse=False)
+  intt            same, inverse=True                                intt_plain
+  phase           PallasNtt._phase / _phase_kernel_factory          phase_plain
+  ==============  ===============================================  ===========
+
+``ntt`` / ``intt`` / ``phase`` take the plain version only for a tensor that
+lies on the CPU.  For a CUDA tensor they launch the kernel of
+``csrc/four_step.cu`` on PyTorch's current stream (no synchronise; the output
+comes from ``torch.empty``) or raise; nothing falls back.  Each adds one to
+``launch_counts[name]`` where it launches.  On the card the digit-pair
+products run on the integer tensor cores (u8 x u8 -> s32).
+
+The plain versions take the digit-pair products with ``torch.matmul`` in
+float64, where every sum (< 2^26) is exact.  Nothing on the card's path calls
+them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..bfv.modmath import addmod as np_addmod
+from ..bfv.modmath import get_ntt_tables, invmod
+from ..bfv.modmath import mulmod as np_mulmod
+from ..bfv.modmath import submod as np_submod
+from . import build
+from .modmath import barrett_mu, mulmod, shoup_precompute
+from .ntt import _group_stride, _check_input
+
+NDIG = 5                       # base-256 digits of a residue below 2^40
+KERNEL_SIDES = (16, 32, 64, 128)   # R and C the kernels take
+PHASE_MODES = ("none", "pre", "post")
+
+KERNEL_NAMES = ("four_step_ntt", "four_step_intt", "four_step_phase")
+launch_counts = {name: 0 for name in KERNEL_NAMES}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+# ======================================================================
+# tables (host numpy, then tensors on the caller's device)
+# ======================================================================
+def _apply_stages(a: np.ndarray, tb, m_start: int, m_end: int,
+                  inverse: bool) -> np.ndarray:
+    """Golden stage loop over a batch (B, n) for stages m_start..m_end."""
+    p = np.uint64(tb.p)
+    n = tb.n
+    a = a.copy()
+    B = a.shape[0]
+    m = m_start
+    if not inverse:
+        while m <= m_end:
+            v = a.reshape(B, m, 2, n // (2 * m))
+            w = tb.root_powers[m:2 * m].reshape(m, 1)
+            lo = v[:, :, 0, :].copy()
+            hi = np_mulmod(v[:, :, 1, :], w, p)
+            v[:, :, 0, :] = np_addmod(lo, hi, p)
+            v[:, :, 1, :] = np_submod(lo, hi, p)
+            m *= 2
+    else:
+        while m >= m_end:
+            v = a.reshape(B, m, 2, n // (2 * m))
+            w = tb.inv_root_powers[m:2 * m].reshape(m, 1)
+            lo = v[:, :, 0, :].copy()
+            hi = v[:, :, 1, :].copy()
+            v[:, :, 0, :] = np_addmod(lo, hi, p)
+            v[:, :, 1, :] = np_mulmod(np_submod(lo, hi, p), w, p)
+            m //= 2
+    return a
+
+
+def _ratio_rows(num: np.ndarray, den: int, p: int) -> np.ndarray:
+    return (num.astype(object) * invmod(den, p) % p).astype(np.uint64)
+
+
+@functools.lru_cache(maxsize=None)
+def _derive_matrices(p: int, n: int, C: int):
+    """(A, B0, T, Ai, B0i, Ti) mod p for the R * C split, derived
+    from the golden stage loop; Ai carries n^-1.  Cached: callers must not
+    write into the arrays."""
+    R = n // C
+    tb = get_ntt_tables(p, n)
+
+    # forward: the cross-row stages (m = 1 .. R/2) act as one column
+    # transform A; the in-row stages (m = R .. n/2) act on row r as B_r
+    basis_rows = np.zeros((R, n), dtype=np.uint64)
+    basis_rows[np.arange(R), np.arange(R) * C] = 1
+    A = _apply_stages(basis_rows, tb, 1, R // 2, False
+                      ).reshape(R, R, C)[:, :, 0].T.copy()     # A[i, r]
+    basis_cols = np.zeros((C, n), dtype=np.uint64)
+    for c in range(C):
+        basis_cols[c, np.arange(R) * C + c] = 1
+    Ball = _apply_stages(basis_cols, tb, R, n // 2, False
+                         ).reshape(C, R, C)                    # [c, r, i]
+    B0 = Ball[:, 0, :].T.copy()                                 # B0[i, c]
+    # T[r, c] = B_r[i0, c] / B_0[i0, c] for any i0 with B_0[i0, c] != 0
+    T = np.empty((R, C), dtype=np.uint64)
+    for c in range(C):
+        i0 = int(np.nonzero(B0[:, c])[0][0])
+        T[:, c] = _ratio_rows(Ball[c, :, i0], int(B0[i0, c]), p)
+    assert np.all(T[0] == 1)
+
+    # inverse: in-row stages first (m = n/2 .. R), then cross-row
+    Bialla = _apply_stages(basis_cols, tb, n // 2, R, True
+                           ).reshape(C, R, C)          # [c, r, i] = B'_r[i, c]
+    B0i = Bialla[:, 0, :].T.copy()                                # B'_0[i, c]
+
+    # diag-left: B'_r = diag(e_r) B'_0, the grid on the output side.  It
+    # holds for every stack the engine uses (the JAX package also tries the
+    # input side; the kernels take this form only)
+    Ti = np.empty((R, C), dtype=np.uint64)
+    for i in range(C):
+        c0 = int(np.nonzero(B0i[i, :])[0][0])
+        Ti[:, i] = _ratio_rows(Bialla[c0, :, i], int(B0i[i, c0]), p)
+    if not all(np.array_equal(
+            Bialla[:, r, :].T,
+            (B0i.astype(object) * Ti[r][:, None].astype(object) % p
+             ).astype(np.uint64)) for r in (1, R // 2, R - 1)):
+        raise ValueError(f"four-step NTT: the inverse of n = {n}, C = {C} "
+                         f"mod {p} does not factor with the grid on its "
+                         "output side")
+
+    Ai = _apply_stages(basis_rows, tb, R // 2, 1, True
+                       ).reshape(R, R, C)[:, :, 0].T.copy()
+    Ai = (Ai.astype(object) * int(tb.n_inv) % p).astype(np.uint64)
+    return A, B0, T, Ai, B0i, Ti
+
+
+def _digits(m: np.ndarray) -> np.ndarray:
+    """(X, Y) uint64 -> (NDIG, X, Y) uint8 digit planes, low digit first."""
+    return np.stack([((m >> np.uint64(8 * d)) & np.uint64(0xFF)
+                      ).astype(np.uint8) for d in range(NDIG)])
+
+
+@dataclasses.dataclass(frozen=True)
+class MxuNttTables:
+    """Four-step tables for a stack of L moduli, tensors on one device.
+
+    The fields down to ``pow_dig_shoup`` are those of the JAX package's
+    ``MxuNttTables`` (digit planes in uint8 where it holds bf16; words as
+    int64 storage of uint64).  The rest are the kernels' layouts of the same
+    numbers."""
+
+    n: int
+    R: int
+    C: int
+    p: torch.Tensor              # (L, 1)
+    mu: torch.Tensor             # (L, 1) floor(2^64 / p)
+    A_dig: torch.Tensor          # (L, NDIG, R, R) uint8, A[i, r]
+    B0T_dig: torch.Tensor        # (L, NDIG, C, C) uint8, B0[i, c] at [c, i]
+    T: torch.Tensor              # (L, R, C)
+    T_shoup: torch.Tensor
+    Ai_dig: torch.Tensor         # (L, NDIG, R, R), n^-1 * factor folded in
+    B0iT_dig: torch.Tensor       # (L, NDIG, C, C)
+    Ti: torch.Tensor             # (L, R, C)
+    Ti_shoup: torch.Tensor
+    diag_left: bool              # always True: the form the port takes
+    pow_dig: torch.Tensor        # (L, 2*NDIG-1, 1, 1): 256^s mod p
+    pow_dig_shoup: torch.Tensor
+    # the kernels' layouts
+    B0_dig: torch.Tensor         # (L, NDIG, C, C) uint8, B0[i, c] at [i, c]
+    B0i_dig: torch.Tensor
+    scalars: torch.Tensor        # (L, 4): p, mu, 256^NDIG mod p, Shoup word
+    TT: torch.Tensor             # (L, C, R) = T transposed, for ``phase``
+    TT_shoup: torch.Tensor
+    TiT: torch.Tensor            # (L, C, R) = Ti transposed
+    TiT_shoup: torch.Tensor
+
+
+def _dev(arr, device) -> torch.Tensor:
+    return torch.from_numpy(
+        np.ascontiguousarray(arr, dtype=np.uint64).view(np.int64)).to(device)
+
+
+def build_mxu_tables(moduli: Sequence[int], n: int, device, C: int = 64,
+                     n_inv_factors: Optional[Sequence[int]] = None
+                     ) -> MxuNttTables:
+    """Tables on `device`, which the caller names (there is no default).
+    n_inv_factors: optional per-limb constants that multiply A' before its
+    digit split, so that the inverse returns ``factor * x`` (the engine folds
+    t and t * q_hat_inv there, as it does into the butterfly's n^-1)."""
+    moduli = [int(p) for p in moduli]
+    R = n // C
+    if R * C != n or R < 2 or C < 2:
+        raise ValueError(f"four-step NTT: n = {n} is not R * C with C = {C} "
+                         "and R, C >= 2")
+    if max(moduli) >= 1 << 37:
+        raise ValueError("four-step NTT: moduli must be below 2^37")
+    mats = [_derive_matrices(p, n, C) for p in moduli]
+    factors = n_inv_factors if n_inv_factors is not None else [1] * len(moduli)
+    Ai = [(m[3].astype(object) * (int(f) % p) % p).astype(np.uint64)
+          for m, f, p in zip(mats, factors, moduli)]
+    p_col = np.array(moduli, dtype=np.uint64).reshape(-1, 1)
+    grid = p_col[:, :, None]
+
+    def stack(i):
+        return np.stack([m[i] for m in mats])
+
+    def digits(mats_):
+        return torch.from_numpy(np.stack([_digits(m) for m in mats_])
+                                ).to(device)
+
+    T, Ti = stack(2), stack(5)
+    T_s, Ti_s = shoup_precompute(T, grid), shoup_precompute(Ti, grid)
+    pows = np.array([[pow(256, s, p) for s in range(2 * NDIG - 1)]
+                     for p in moduli], dtype=np.uint64)[..., None, None]
+    pows_s = shoup_precompute(pows, p_col[:, :, None, None])
+    mu = barrett_mu(p_col)
+    scalars = np.concatenate([p_col, mu, pows[:, NDIG, 0], pows_s[:, NDIG, 0]],
+                             axis=1)
+    B0_dig = digits([m[1] for m in mats])
+    B0i_dig = digits([m[4] for m in mats])
+    return MxuNttTables(
+        n=n, R=R, C=C, p=_dev(p_col, device), mu=_dev(mu, device),
+        A_dig=digits([m[0] for m in mats]),
+        B0T_dig=B0_dig.transpose(-1, -2).contiguous(),
+        T=_dev(T, device), T_shoup=_dev(T_s, device),
+        Ai_dig=digits(Ai), B0iT_dig=B0i_dig.transpose(-1, -2).contiguous(),
+        Ti=_dev(Ti, device), Ti_shoup=_dev(Ti_s, device),
+        diag_left=True,
+        pow_dig=_dev(pows, device), pow_dig_shoup=_dev(pows_s, device),
+        B0_dig=B0_dig, B0i_dig=B0i_dig, scalars=_dev(scalars, device),
+        TT=_dev(T.transpose(0, 2, 1), device),
+        TT_shoup=_dev(T_s.transpose(0, 2, 1), device),
+        TiT=_dev(Ti.transpose(0, 2, 1), device),
+        TiT_shoup=_dev(Ti_s.transpose(0, 2, 1), device),
+    )
+
+
+# ======================================================================
+# plain PyTorch versions
+# ======================================================================
+def _digit_matmul(w_dig: torch.Tensor, x: torch.Tensor,
+                  tb: MxuNttTables) -> torch.Tensor:
+    """(W @ X) mod p.  w_dig: (L, NDIG, K, K) uint8; x: (..., L, K, J)
+    canonical residues.  The digit-pair products go through float64 matmuls
+    (each sum < 2^23 * 5, exact), those of equal digit weight 256^s summed,
+    and the nine sums recombine mod p."""
+    L, _, K, _ = w_dig.shape
+    w = w_dig.to(torch.float64).reshape(L, NDIG * K, K)
+    sums = [None] * (2 * NDIG - 1)
+    for db in range(NDIG):
+        plane = ((x >> (8 * db)) & 0xFF).to(torch.float64)
+        prod = torch.matmul(w, plane)                 # (..., L, NDIG*K, J)
+        for da in range(NDIG):
+            piece = prod[..., da * K:(da + 1) * K, :]
+            s = da + db
+            sums[s] = piece if sums[s] is None else sums[s] + piece
+    v_lo = sum(sums[s].to(torch.int64) << (8 * s) for s in range(NDIG))
+    v_hi = sum(sums[s].to(torch.int64) << (8 * (s - NDIG))
+               for s in range(NDIG, 2 * NDIG - 1))
+    p = tb.p[..., None]
+    shifted = mulmod(v_hi % p, tb.pow_dig[:, NDIG], p)   # * 2^40 mod p
+    return (v_lo % p + shifted) % p
+
+
+def _digit_matmul_right(x: torch.Tensor, wT_dig: torch.Tensor,
+                        tb: MxuNttTables) -> torch.Tensor:
+    """(X @ W^T) mod p for wT_dig = digits of W^T."""
+    return _digit_matmul(wT_dig.transpose(-1, -2), x.transpose(-1, -2),
+                         tb).transpose(-1, -2)
+
+
+def ntt_plain(x: torch.Tensor, tb: MxuNttTables) -> torch.Tensor:
+    """Forward four-step NTT of (..., L, n): natural order in, SEAL's
+    bit-reversed order out."""
+    lead = x.shape[:-1]
+    m = x.reshape(lead + (tb.R, tb.C))
+    y = mulmod(_digit_matmul(tb.A_dig, m, tb), tb.T, tb.p[..., None])
+    return _digit_matmul_right(y, tb.B0T_dig, tb).reshape(lead + (tb.n,))
+
+
+def intt_plain(y: torch.Tensor, tb: MxuNttTables) -> torch.Tensor:
+    """Inverse four-step NTT of (..., L, n), times n^-1 * factor."""
+    lead = y.shape[:-1]
+    m = y.reshape(lead + (tb.R, tb.C))
+    # B'_r = diag(e_r) B'_0: the grid after the row product
+    z = mulmod(_digit_matmul_right(m, tb.B0iT_dig, tb), tb.Ti, tb.p[..., None])
+    return _digit_matmul(tb.Ai_dig, z, tb).reshape(lead + (tb.n,))
+
+
+def _check_mode(mode: str, grid) -> None:
+    if mode not in PHASE_MODES:
+        raise ValueError(f"phase: mode must be one of {PHASE_MODES}, got "
+                         f"{mode!r}")
+    if (grid is None) != (mode == "none"):
+        raise ValueError(f"phase: mode {mode!r} "
+                         + ("takes no grid" if mode == "none"
+                            else "needs a grid (words, Shoup words)"))
+
+
+def phase_plain(x: torch.Tensor, weights: torch.Tensor, grid, mode: str,
+                tb: MxuNttTables) -> torch.Tensor:
+    """One digit-matrix product W @ X mod p over (..., L, K, J), with the
+    grid's words multiplied in before it ("pre"), after it ("post") or not
+    at all ("none").  weights: (L, NDIG, K, K) uint8; grid: None or a pair
+    (words, Shoup words) of (L, K, J)."""
+    _check_mode(mode, grid)
+    p = tb.p[..., None]
+    if mode == "pre":
+        x = mulmod(x, grid[0], p)
+    out = _digit_matmul(weights, x, tb)
+    return mulmod(out, grid[0], p) if mode == "post" else out
+
+
+# ======================================================================
+# kernel wrappers
+# ======================================================================
+def check_sides(name: str, *sides: int) -> None:
+    """The kernels tile each side in 16-row MMA tiles and hold the row in
+    one block's shared memory: R and C must be 16, 32, 64 or 128."""
+    for side in sides:
+        if side not in KERNEL_SIDES:
+            raise ValueError(f"{name}: the kernel takes matrix sides "
+                             f"{KERNEL_SIDES}, got {side}")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch_transform(name: str, x: torch.Tensor,
+                      tb: MxuNttTables) -> torch.Tensor:
+    L, n = tb.p.shape[0], tb.n
+    _check_input(name, x, tb.p.device, (L, n))
+    check_sides(name, tb.R, tb.C)
+    inverse = name == "four_step_intt"
+    stride = _group_stride(x, name, L, n)
+    lib = build.load_library()
+    out = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    rows = math.prod(x.shape[:-1])
+    w_row, w_col = (tb.Ai_dig, tb.B0i_dig) if inverse else (tb.A_dig,
+                                                             tb.B0_dig)
+    grid, grid_s = (tb.Ti, tb.Ti_shoup) if inverse else (tb.T, tb.T_shoup)
+    with torch.cuda.device(x.device):      # the launch goes to x's card
+        rc = lib.fhe_four_step_ntt(
+            x.data_ptr(), out.data_ptr(), rows, L, tb.R, tb.C, stride,
+            tb.scalars.data_ptr(), w_row.data_ptr(), w_col.data_ptr(),
+            grid.data_ptr(), grid_s.data_ptr(), int(inverse), _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
+    launch_counts[name] += 1
+    return out
+
+
+def ntt(x: torch.Tensor, tb: MxuNttTables) -> torch.Tensor:
+    """Forward four-step NTT of (..., L, n), both phases in one kernel.
+    Kernel for PallasNtt._fused_call (forward)."""
+    if x.device.type == "cpu":
+        return ntt_plain(x, tb)
+    return _launch_transform("four_step_ntt", x, tb)
+
+
+def intt(x: torch.Tensor, tb: MxuNttTables) -> torch.Tensor:
+    """Inverse four-step NTT of (..., L, n), times n^-1 * factor, both
+    phases in one kernel.  Kernel for PallasNtt._fused_call (inverse)."""
+    if x.device.type == "cpu":
+        return intt_plain(x, tb)
+    return _launch_transform("four_step_intt", x, tb)
+
+
+def phase(x: torch.Tensor, weights: torch.Tensor, grid, mode: str,
+          tb: MxuNttTables) -> torch.Tensor:
+    """One digit-matrix product over (..., L, K, J) with the grid before,
+    after or not at all (see ``phase_plain``).  Kernel for
+    PallasNtt._phase."""
+    if x.device.type == "cpu":
+        return phase_plain(x, weights, grid, mode, tb)
+    name = "four_step_phase"
+    _check_mode(mode, grid)
+    L = tb.p.shape[0]
+    if x.dim() < 3:
+        raise ValueError(f"{name}: expected (..., {L}, K, J), got "
+                         f"{tuple(x.shape)}")
+    K, J = x.shape[-2:]
+    _check_input(name, x, tb.p.device, (L, K, J))
+    check_sides(name, K, J)
+    if (weights.dtype != torch.uint8 or weights.device != x.device
+            or tuple(weights.shape) != (L, NDIG, K, K)
+            or not weights.is_contiguous()):
+        raise ValueError(f"{name}: weights must be contiguous uint8 "
+                         f"({L}, {NDIG}, {K}, {K}) on {x.device}")
+    if grid is not None and any(
+            g.dtype != torch.int64 or g.device != x.device
+            or tuple(g.shape) != (L, K, J) or not g.is_contiguous()
+            for g in grid):
+        raise ValueError(f"{name}: grid words must be contiguous int64 "
+                         f"({L}, {K}, {J}) on {x.device}")
+    try:
+        flat = x.view(x.shape[:-2] + (K * J,))
+    except RuntimeError:
+        raise ValueError(f"{name}: each (K, J) matrix must be contiguous, "
+                         f"got strides {tuple(x.stride())}") from None
+    stride = _group_stride(flat, name, L, K * J)
+    lib = build.load_library()
+    out = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    rows = math.prod(x.shape[:-2])
+    g, gs = (grid[0].data_ptr(), grid[1].data_ptr()) if grid else (None, None)
+    with torch.cuda.device(x.device):
+        rc = lib.fhe_four_step_phase(
+            x.data_ptr(), out.data_ptr(), rows, L, K, J, stride,
+            tb.scalars.data_ptr(), weights.data_ptr(), g, gs,
+            PHASE_MODES.index(mode), _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
+    launch_counts[name] += 1
+    return out
+
+
+def _matrices(x: torch.Tensor, tb: MxuNttTables) -> torch.Tensor:
+    """(..., L, n) as (..., L, R, C) without a copy (a view, or an error)."""
+    return x.view(x.shape[:-1] + (tb.R, tb.C))
+
+
+def ntt_two_launch(x: torch.Tensor, tb: MxuNttTables) -> torch.Tensor:
+    """Forward transform as PallasNtt._call with fused=False: the r-product
+    ("none"), a transpose, the c-product with the grid before it ("pre"), a
+    transpose back.  The transposes are torch copies, as the reference
+    leaves them to XLA."""
+    y = phase(_matrices(x, tb), tb.A_dig, None, "none", tb)
+    zt = phase(y.transpose(-1, -2).contiguous(), tb.B0_dig,
+               (tb.TT, tb.TT_shoup), "pre", tb)
+    return zt.transpose(-1, -2).reshape(x.shape)
+
+
+def intt_two_launch(x: torch.Tensor, tb: MxuNttTables) -> torch.Tensor:
+    """Inverse transform in two launches: the c-product with the grid after
+    it ("post") on the transposed matrices, a transpose, the r-product."""
+    zt = phase(_matrices(x, tb).transpose(-1, -2).contiguous(), tb.B0i_dig,
+               (tb.TiT, tb.TiT_shoup), "post", tb)
+    out = phase(zt.transpose(-1, -2).contiguous(), tb.Ai_dig, None, "none",
+                tb)
+    return out.view(x.shape)
+
+
+class FourStepNtt:
+    """ntt / intt over one stack of moduli with the four-step kernels, as
+    ``PallasNtt``: ``fused=True`` runs both products in one launch (kernel
+    8), ``fused=False`` in two launches of kernel 9 with torch transposes
+    between them."""
+
+    def __init__(self, moduli: Sequence[int], n: int, device, C: int = 64,
+                 fused: bool = True,
+                 n_inv_factors: Optional[Sequence[int]] = None):
+        self.tables = build_mxu_tables(moduli, n, device, C, n_inv_factors)
+        self.fused = fused
+
+    def ntt(self, x: torch.Tensor) -> torch.Tensor:
+        return (ntt if self.fused else ntt_two_launch)(x, self.tables)
+
+    def intt(self, x: torch.Tensor) -> torch.Tensor:
+        return (intt if self.fused else intt_two_launch)(x, self.tables)

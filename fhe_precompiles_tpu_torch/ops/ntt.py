@@ -170,20 +170,29 @@ def _group_stride(x: torch.Tensor, name: str, L: int, n: int) -> int:
     return stride
 
 
-def _launch(name: str, x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+def _check_input(name: str, x: torch.Tensor, tables_device: torch.device,
+                tail: Sequence[int]) -> None:
+    """What every NTT kernel wrapper takes: an int64 tensor on a card, its
+    last axes `tail`, the tables on the same card."""
     if not x.is_cuda:
         raise ValueError(f"{name}: no kernel for a tensor on device "
                          f"{x.device} (CUDA launches the kernel, CPU takes "
                          "the plain version)")
     if x.dtype != torch.int64:
         raise TypeError(f"{name}: expected torch.int64, got {x.dtype}")
-    L, n = tb.p.shape[0], tb.n
-    if x.dim() < 2 or tuple(x.shape[-2:]) != (L, n):
-        raise ValueError(f"{name}: expected shape (..., {L}, {n}), got "
+    tail = tuple(tail)
+    if x.dim() < len(tail) or tuple(x.shape[-len(tail):]) != tail:
+        raise ValueError(f"{name}: expected shape (..., "
+                         f"{', '.join(map(str, tail))}), got "
                          f"{tuple(x.shape)}")
-    if tb.p.device != x.device:
-        raise ValueError(f"{name}: tables on {tb.p.device}, data on "
+    if tables_device != x.device:
+        raise ValueError(f"{name}: tables on {tables_device}, data on "
                          f"{x.device}")
+
+
+def _launch(name: str, x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    L, n = tb.p.shape[0], tb.n
+    _check_input(name, x, tb.p.device, (L, n))
     stride = _group_stride(x, name, L, n)
     lib = build.load_library()
     if n < 8 or n > lib.fhe_ntt_max_n():
@@ -226,3 +235,18 @@ def intt(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
     if x.device.type == "cpu":
         return intt_plain(x, tb)
     return _launch("intt", x, tb)
+
+
+class ButterflyNtt:
+    """``ntt`` / ``intt`` over one stack of moduli with its tables: the
+    engine's default transform (``FourStepNtt`` is the other)."""
+
+    def __init__(self, moduli: Sequence[int], n: int, device,
+                 n_inv_factors: Optional[Sequence[int]] = None):
+        self.tables = build_tables(moduli, n, device, n_inv_factors)
+
+    def ntt(self, x: torch.Tensor) -> torch.Tensor:
+        return ntt(x, self.tables)
+
+    def intt(self, x: torch.Tensor) -> torch.Tensor:
+        return intt(x, self.tables)

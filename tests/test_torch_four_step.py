@@ -1,0 +1,302 @@
+"""The port's four-step NTT (``ops/four_step.py``; on the CPU the plain
+versions of its kernels) against the JAX package's ``ops/mxu_ntt.py`` and
+``PallasNtt`` in interpret mode, against the port's butterfly NTT, and
+``TorchEngine(ntt_backend="four_step")`` against the JAX package's golden
+model.  Exact integer arithmetic: every comparison is ``np.array_equal`` or
+``torch.equal``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from fhe_precompiles_tpu.bfv import BfvContext as JaxBfvContext
+from fhe_precompiles_tpu.bfv import Ciphertext as JaxCiphertext
+from fhe_precompiles_tpu.ops import mxu_ntt
+from fhe_precompiles_tpu.params import TESTNET_ONE as JAX_TESTNET_ONE
+
+from fhe_precompiles_tpu_torch import convert
+from fhe_precompiles_tpu_torch.bfv import (BfvContext, Ciphertext, PublicKey,
+                                           SecretKey)
+from fhe_precompiles_tpu_torch.ops import four_step as fs
+from fhe_precompiles_tpu_torch.ops import ntt as tn
+from fhe_precompiles_tpu_torch.ops import tail
+from fhe_precompiles_tpu_torch.ops.engine import TorchEngine
+from fhe_precompiles_tpu_torch.ops.modmath import shoup_precompute
+from fhe_precompiles_tpu_torch.params import TESTNET_ONE
+
+# the suite runs several workers side by side: keep torch to one thread each
+torch.set_num_threads(1)
+
+G1 = BfvContext(TESTNET_ONE)
+ALL = tuple(G1.q_mods + G1.Bsk)
+MODS = (0xFFFFEE001, 0xFFFFC4001, 0x1FFFFE0001)     # tests/test_pallas_ntt.py
+
+
+def _t(arr):
+    return torch.from_numpy(np.array(arr, dtype=np.uint64).view(np.int64))
+
+
+def _np(x):
+    return x.contiguous().numpy().view(np.uint64)
+
+
+def _rand(rng, lead, mods, n):
+    out = np.empty(lead + (len(mods), n), dtype=np.uint64)
+    for li, p in enumerate(mods):
+        out[..., li, :] = rng.integers(0, p, size=lead + (n,),
+                                       dtype=np.uint64)
+        out[..., li, 0], out[..., li, 1] = p - 1, 0
+    return out
+
+
+@pytest.fixture(scope="module")
+def one_all():
+    """q u Bsk of testnet.one at n = 4096, C = 64: the port's tables and the
+    JAX package's."""
+    return (fs.build_mxu_tables(ALL, 4096, "cpu"),
+            mxu_ntt.build_mxu_tables(ALL, 4096))
+
+
+# ----------------------------------------------------------------------
+# tables
+# ----------------------------------------------------------------------
+def _equal_tables(port, ref):
+    assert (port.n, port.R, port.C, port.diag_left) == (
+        ref.n, ref.R, ref.C, ref.diag_left)
+    for name in ("p", "mu", "T", "T_shoup", "Ti", "Ti_shoup", "pow_dig",
+                 "pow_dig_shoup"):
+        assert np.array_equal(_np(getattr(port, name)),
+                              np.asarray(getattr(ref, name))), name
+    for name in ("A_dig", "B0T_dig", "Ai_dig", "B0iT_dig"):
+        got = getattr(port, name)
+        assert got.dtype == torch.uint8, name
+        want = np.asarray(getattr(ref, name)).astype(np.float32)
+        assert np.array_equal(got.numpy().astype(np.float32), want), name
+    # the kernels' layouts hold the same numbers
+    assert torch.equal(port.B0_dig, port.B0T_dig.transpose(-1, -2))
+    assert torch.equal(port.B0i_dig, port.B0iT_dig.transpose(-1, -2))
+    assert torch.equal(port.TT, port.T.transpose(-1, -2))
+    assert torch.equal(port.TiT_shoup, port.Ti_shoup.transpose(-1, -2))
+    assert torch.equal(port.scalars[:, 2], port.pow_dig[:, fs.NDIG, 0, 0])
+
+
+def test_tables_equal_jax_package_q_bsk_4096(one_all):
+    _equal_tables(*one_all)
+
+
+def test_tables_equal_jax_package_non_square_512():
+    """n = 512, C = 16: R = 32, so the two matrices differ in size."""
+    _equal_tables(fs.build_mxu_tables(MODS, 512, "cpu", C=16),
+                  mxu_ntt.build_mxu_tables(MODS, 512, 16))
+
+
+# ----------------------------------------------------------------------
+# the plain transform against the JAX package and against the port
+# ----------------------------------------------------------------------
+def test_plain_equals_jitted_mxu_ntt(one_all):
+    tb, ref = one_all
+    x = _rand(np.random.default_rng(31), (2,), ALL, 4096)
+    y = fs.ntt_plain(_t(x), tb)
+    want = jax.jit(lambda v: mxu_ntt.ntt(v, ref))(jnp.asarray(x))
+    assert np.array_equal(_np(y), np.asarray(want, dtype=np.uint64))
+    back = jax.jit(lambda v: mxu_ntt.intt(v, ref))(jnp.asarray(_np(y)))
+    assert np.array_equal(_np(fs.intt_plain(y, tb)),
+                          np.asarray(back, dtype=np.uint64))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_equals_pallas_ntt_interpret(fused):
+    """The kernels' form on the CPU against the Pallas kernels they replace,
+    run as tests/test_pallas_ntt.py runs them: the forward transform in one
+    launch (``_fused_call``), the inverse in two (``_phase`` "post", a
+    transpose, ``_phase`` "none").  One direction each: an interpreted
+    Pallas transform costs some 3 s."""
+    from fhe_precompiles_tpu.ops.pallas_ntt import PallasNtt
+    x = _rand(np.random.default_rng(32), (4,), MODS, 256)
+    pn = PallasNtt(MODS, 256, C=16, tb=4, interpret=True, fused=fused)
+    port = fs.FourStepNtt(MODS, 256, "cpu", C=16, fused=fused)
+    if fused:
+        got, want = port.ntt(_t(x)), pn.ntt(jnp.asarray(x))
+    else:
+        got, want = port.intt(_t(x)), pn.intt(jnp.asarray(x))
+    assert np.array_equal(_np(got), np.asarray(want, dtype=np.uint64))
+
+
+def test_plain_equals_butterfly_and_roundtrips(one_all):
+    tb = one_all[0]
+    btb = tn.build_tables(ALL, 4096, "cpu")
+    x = _t(_rand(np.random.default_rng(33), (3,), ALL, 4096))
+    y = fs.ntt_plain(x, tb)
+    assert torch.equal(y, tn.ntt_plain(x, btb))
+    assert torch.equal(fs.intt_plain(x, tb), tn.intt_plain(x, btb))
+    assert torch.equal(fs.intt_plain(y, tb), x)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_folded_inverse_equals_butterfly_fold(fused):
+    """n_inv_factors multiply A' before its digit split: the engine's
+    t * q_hat_inv for the q limbs and t for the Bsk limbs, at n = 1024."""
+    t = TESTNET_ONE.t
+    factors = ([t * G1.q_hat_inv[i] % p for i, p in enumerate(G1.q_mods)]
+               + [t] * len(G1.Bsk))
+    x = _t(_rand(np.random.default_rng(34), (2,), ALL, 1024))
+    got = fs.FourStepNtt(ALL, 1024, "cpu", fused=fused,
+                         n_inv_factors=factors).intt(x)
+    want = tn.intt_plain(x, tn.build_tables(ALL, 1024, "cpu",
+                                            n_inv_factors=factors))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", fs.PHASE_MODES)
+def test_phase_equals_python_integers(mode):
+    """One product W @ X mod p over 16 x 32 matrices, the grid before, after
+    or not at all, against Python integers."""
+    tb = fs.build_mxu_tables(MODS, 512, "cpu", C=16)       # R = 32
+    rng = np.random.default_rng(35)
+    K, J = 16, 32
+    x = _rand(rng, (2,), MODS, K * J).reshape(2, len(MODS), K, J)
+    w = _rand(rng, (), MODS, K * K).reshape(len(MODS), K, K)
+    g = _rand(rng, (), MODS, K * J).reshape(len(MODS), K, J)
+    w_dig = torch.from_numpy(np.stack([fs._digits(m) for m in w]))
+    grid = None
+    if mode != "none":
+        p_col = np.array(MODS, dtype=np.uint64).reshape(-1, 1, 1)
+        grid = (_t(g), _t(shoup_precompute(g, p_col)))
+    got = _np(fs.phase(_t(x), w_dig, grid, mode, tb))
+    for li, p in enumerate(MODS):
+        wl = w[li].astype(object)
+        gl = g[li].astype(object)
+        for b in range(2):
+            xl = x[b, li].astype(object)
+            if mode == "pre":
+                xl = xl * gl % p
+            want = wl.dot(xl) % p
+            if mode == "post":
+                want = want * gl % p
+            assert np.array_equal(got[b, li], want.astype(np.uint64))
+
+
+def test_two_launch_form_takes_the_strided_view():
+    """decrypt hands over ``ct[:, comp]``: the not-fused form views it as
+    matrices without a copy of its own, the fused form takes it as it is."""
+    tb_q = fs.FourStepNtt(G1.q_mods, 1024, "cpu", fused=False)
+    ct = _t(_rand(np.random.default_rng(36), (3, 2), G1.q_mods, 1024))
+    view = ct[:, 1]
+    assert not view.is_contiguous()
+    want = fs.ntt_plain(view.contiguous(), tb_q.tables)
+    assert torch.equal(tb_q.ntt(view), want)
+    assert torch.equal(fs.ntt(view, tb_q.tables), want)
+
+
+# ----------------------------------------------------------------------
+# the engine's four-step configuration
+# ----------------------------------------------------------------------
+class FourStepCase:
+    """testnet.one, B = 2: keys, plaintexts and ciphertexts from the JAX
+    package's golden model, the port's engine on the CPU with the four-step
+    transforms."""
+
+    def __init__(self):
+        self.g = JaxBfvContext(JAX_TESTNET_ONE)
+        self.pk, self.sk = self.g.generate_keys(seed=b"\x61" * 64)
+        rng = np.random.default_rng(0x61)
+        self.plains = np.zeros((4, self.g.n), dtype=np.uint64)
+        self.plains[:, :6] = rng.integers(0, 12, size=(4, 6), dtype=np.uint64)
+        self.seeds = [bytes([i + 1]) * 64 for i in range(4)]
+        self.cts = [self.g.encrypt(m, self.pk, s)
+                    for m, s in zip(self.plains, self.seeds)]
+        self.eng = TorchEngine(TESTNET_ONE, device="cpu",
+                               ntt_backend="four_step")
+        self.tpk = PublicKey(TESTNET_ONE, self.pk.data)
+        self.tsk = SecretKey(TESTNET_ONE, self.sk.s_ntt)
+        self.rk = convert.relin_keys_from_numpy(self.pk.relin.data, "cpu",
+                                                TESTNET_ONE)
+
+
+@pytest.fixture(scope="module")
+def four():
+    return FourStepCase()
+
+
+def test_engine_holds_four_step_transforms(four):
+    e = four.eng
+    assert e.ntt_backend == "four_step"
+    assert all(isinstance(v, fs.FourStepNtt) for v in e.ntts.values())
+    assert e.behz.ntt_all == e._ntt_all and e.behz.intt_key == e._intt_key
+
+
+def test_engine_mul_relin_equals_golden(four):
+    a = convert.ciphertexts_from_numpy([c.data for c in four.cts[:2]], "cpu")
+    b = convert.ciphertexts_from_numpy([c.data for c in four.cts[2:]], "cpu")
+    tail.reset_launch_counts()
+    fs.reset_launch_counts()
+    out = convert.to_numpy(four.eng._mul_relin(a, b, four.rk))
+    for i in range(2):
+        want = four.g.mul_relin(four.cts[i], four.cts[2 + i], four.pk.relin)
+        assert np.array_equal(out[i], want.data)
+    assert not any(fs.launch_counts.values())
+    assert not any(tail.launch_counts.values())
+
+
+def test_engine_encrypt_decrypt_mul_plain_equal_golden(four):
+    e = four.eng
+    enc = e.encrypt_batch(four.plains[:2], four.tpk, four.seeds[:2])
+    for i in range(2):
+        assert np.array_equal(convert.to_numpy(enc)[i], four.cts[i].data)
+    ct3 = e._multiply(enc, torch.roll(enc, 1, dims=0))
+    for size, data in ((2, enc), (3, ct3)):
+        got = convert.to_numpy(e.decrypt_batch(data, four.tsk))
+        for i in range(2):
+            host = JaxCiphertext(JAX_TESTNET_ONE, convert.to_numpy(data)[i])
+            assert np.array_equal(got[i], four.g.decrypt(host, four.sk)), size
+    assert np.array_equal(convert.to_numpy(e.decrypt_batch(enc, four.tsk)),
+                          four.plains[:2])
+    x = Ciphertext(TESTNET_ONE, four.cts[0].data)
+    assert np.array_equal(e.mul_plain(x, four.plains[3]).data,
+                          four.g.mul_plain(four.cts[0], four.plains[3]).data)
+
+
+# ----------------------------------------------------------------------
+# what is refused
+# ----------------------------------------------------------------------
+def test_unknown_ntt_backend_raises():
+    for name in ("pallas", "stage", "four-step", ""):
+        with pytest.raises(ValueError, match="unknown ntt_backend"):
+            TorchEngine(TESTNET_ONE, device="cpu", ntt_backend=name)
+
+
+def test_wrappers_do_not_fall_back_off_the_cpu():
+    tb = fs.build_mxu_tables(MODS, 256, "cpu", C=16)
+
+    def meta(*shape, dtype=torch.int64):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    fs.reset_launch_counts()
+    for call in (lambda: fs.ntt(meta(1, 3, 256), tb),
+                 lambda: fs.intt(meta(2, 3, 256), tb),
+                 lambda: fs.phase(meta(1, 3, 16, 16), tb.A_dig, None, "none",
+                                  tb)):
+        with pytest.raises(ValueError, match="no kernel for a tensor"):
+            call()
+    assert not any(fs.launch_counts.values())
+
+
+def test_kernel_sides_and_modes_are_checked():
+    for side in fs.KERNEL_SIDES:
+        fs.check_sides("ntt", side, side)
+    for side in (8, 24, 256):
+        with pytest.raises(ValueError, match="matrix sides"):
+            fs.check_sides("ntt", 64, side)
+    tb = fs.build_mxu_tables(MODS, 256, "cpu", C=16)
+    x = torch.zeros((1, 3, 16, 16), dtype=torch.int64)
+    with pytest.raises(ValueError, match="mode must be one of"):
+        fs.phase(x, tb.A_dig, None, "middle", tb)
+    with pytest.raises(ValueError, match="takes no grid"):
+        fs.phase(x, tb.A_dig, (tb.T, tb.T_shoup), "none", tb)
+    with pytest.raises(ValueError, match="needs a grid"):
+        fs.phase(x, tb.A_dig, None, "pre", tb)
+    with pytest.raises(ValueError, match="not R \\* C"):
+        fs.build_mxu_tables(MODS, 256, "cpu", C=48)

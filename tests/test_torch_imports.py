@@ -30,7 +30,7 @@ def test_every_submodule_is_listed():
     for want in ("params", "sampling", "convert", "bfv.golden", "bfv.ntt",
                  "bfv.modmath", "bfv.uint128", "ops.modmath", "ops.ntt",
                  "ops.tail", "ops.tail_cases", "ops.behz", "ops.engine",
-                 "ops.build", "ops.wide"):
+                 "ops.build", "ops.wide", "ops.four_step"):
         assert "fhe_precompiles_tpu_torch." + want in names
 
 
@@ -89,7 +89,7 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
 
     tail.reset_launch_counts()
     torch_ntt.reset_launch_counts()
-    bz = eng.behz
+    ntts = eng.ntts
     calls = {
         "to_bsk_ext": lambda: tail.to_bsk_ext(meta(1, 2, k, n), c),
         "dyadic": lambda: tail.dyadic(meta(1, 2, nb, n), meta(1, 2, nb, n),
@@ -99,8 +99,9 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
                                             meta(k, 2, kk, n), c),
         "mod_down": lambda: tail.mod_down(meta(1, 2, kk, n),
                                           meta(1, 2, k, n), c),
-        "ntt": lambda: torch_ntt.ntt(meta(1, 2, nb, n), bz.tb_all),
-        "intt": lambda: torch_ntt.intt(meta(1, 2, kk, n), bz.tb_key),
+        "ntt": lambda: torch_ntt.ntt(meta(1, 2, nb, n), ntts["all"].tables),
+        "intt": lambda: torch_ntt.intt(meta(1, 2, kk, n),
+                                       ntts["key"].tables),
     }
     assert set(calls) == set(tail.KERNEL_NAMES + torch_ntt.KERNEL_NAMES)
     for name, call in calls.items():
