@@ -77,6 +77,13 @@ BARRETT = MULHI + MULLO           # hi(x * mu), q * p
 # general product kept lazy: hi(a * b), a * b, hi * (2^64 mod p), one Barrett
 # step (2^64 mod p is the same for a whole launch and is not counted)
 MUL_LAZY = MULHI + 2 * MULLO + BARRETT
+# The NTT kernels form their 40-bit Shoup product on the FP64 pipe: four
+# multiply-adds (q = a * ws40 / 2^40 rounded down, h = a * w, its error
+# a * w - h, h - q * p).  FP64 outside the tensor cores runs at half the
+# float32 rate (the data sheet's 34 TFLOP/s, rounded): 16.75e12
+# multiply-adds a second, as the 32-bit integer pipe.
+SHOUP40_FMAS = 4
+PEAK_FP64_FMA_PER_S = 16.75e12
 MULMOD = MUL_LAZY + BARRETT
 L2_BYTES = 50 * 2 ** 20           # the card's L2 cache
 
@@ -145,14 +152,15 @@ def hold_device(ms: float) -> None:
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Mean milliseconds of one call on the card, from CUDA events around
-    `reps` calls queued behind a spin kernel (0.15 ms of it for each call;
-    the host issues one in 0.02-0.04 ms).  `fn` takes the call's number."""
+    `reps` calls queued behind a spin kernel (0.5 ms of it for each call;
+    the host issues one in 0.02-0.04 ms, and a pause of the host of a few
+    milliseconds stays hidden too).  `fn` takes the call's number."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    hold_device(0.15 * reps)
+    hold_device(0.5 * reps)
     start.record()
     for i in range(reps):
         fn(i)
@@ -228,13 +236,14 @@ def imads_per_launch(name: str, c: tail.TailConstants, batch: int) -> int:
     return per_pos * rows * n
 
 
-def ntt_imads(name: str, rows: int, n: int) -> int:
-    """32-bit multiply-adds of one transform of `rows` rows, as csrc/ntt.cu
-    forms them: one Shoup product for each of the n/2 * log2(n) butterflies,
-    and for the inverse one more for each word (the n^-1 multiply)."""
-    per_row = n // 2 * (n.bit_length() - 1) * SHOUP
+def ntt_fmas(name: str, rows: int, n: int) -> int:
+    """FP64 multiply-adds of one transform of `rows` rows, as csrc/ntt.cu
+    forms them: one 40-bit Shoup product for each of the n/2 * log2(n)
+    butterflies, and for the inverse one more for each word (the n^-1
+    multiply)."""
+    per_row = n // 2 * (n.bit_length() - 1) * SHOUP40_FMAS
     if name == "intt":
-        per_row += n * SHOUP
+        per_row += n * SHOUP40_FMAS
     return rows * per_row
 
 
@@ -479,14 +488,16 @@ def compare(kern, plain, inputs, c):
 
 
 def timed_row(name, kern, plain, inputs, c, nbytes, imads, max_err,
-              int8_ops=0):
+              int8_ops=0, fp64_fmas=0):
     """One row of the last ``kernels`` line and the terms of its bound.  The
-    operations term is the larger of the integer pipe's (`imads`) and the
-    tensor cores' (`int8_ops`): the two run side by side."""
+    operations term is the largest of the integer pipe's (`imads`), the FP64
+    pipe's (`fp64_fmas`) and the tensor cores' (`int8_ops`): they run side
+    by side."""
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     imad_ms = imads / PEAK_IMAD_PER_S * 1e3
+    fp64_ms = fp64_fmas / PEAK_FP64_FMA_PER_S * 1e3
     tensor_ms = int8_ops / PEAK_INT8_OPS_PER_S * 1e3
-    ops_ms = max(imad_ms, tensor_ms)
+    ops_ms = max(imad_ms, tensor_ms, fp64_ms)
     row = {
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": 0,
@@ -503,6 +514,7 @@ def timed_row(name, kern, plain, inputs, c, nbytes, imads, max_err,
     terms = {"bytes": nbytes, "imads": imads, "int8_ops": int8_ops,
              "bytes_bound_ms": bytes_ms, "operations_bound_ms": ops_ms,
              "integer_pipe_ms": imad_ms, "tensor_core_ms": tensor_ms,
+             "fp64_fmas": fp64_fmas, "fp64_pipe_ms": fp64_ms,
              "host_issue_ms": host_ms(lambda i: kern(*inputs, c))}
     return row, terms
 
@@ -568,7 +580,7 @@ def phase_kernels(eng: TorchEngine, eng4: TorchEngine, rng):
             del out
             rows[name], terms = timed_row(
                 name, kern, plain, (x,), tb, nbytes,
-                ntt_imads(name, n_rows, tb.n), max_err)
+                0, max_err, fp64_fmas=ntt_fmas(name, n_rows, tb.n))
             checks[name] = {"name": name, "mismatches": 0, "cases": [],
                             "max_abs_err": 0, **terms}
             case["ms"] = rows[name]["ms"]

@@ -1,8 +1,8 @@
 // Modular primitives on native 64-bit words for the BEHZ tail and NTT kernels.
 //
 // The tail kernels' moduli are primes with 2^32 < p < 2^37; the NTT kernels
-// use csub and the Shoup product only, which hold for any p < 2^61 (see
-// ntt.cu).  Residues are stored as
+// use csub, csub_signed and the 40-bit Shoup product below, which hold for
+// any p < 2^37.  Residues are stored as
 // 8-byte words (torch.int64 on the Python side, never negative), read here as
 // unsigned long long.  Two division-free products:
 //
@@ -37,6 +37,57 @@ __device__ __forceinline__ u64 mul_shoup_lazy(u64 a, u64 w, u64 ws, u64 p) {
 
 __device__ __forceinline__ u64 mul_shoup(u64 a, u64 w, u64 ws, u64 p) {
     return csub(mul_shoup_lazy(a, w, ws, p), p);
+}
+
+// x - m if x >= m, else x, for x, m < 2^63: the sign of the difference
+// picks.  Written in PTX, as the compiler's own form of the C expression
+// measured slower in the forward NTT on an H100.
+__device__ __forceinline__ u64 csub_signed(u64 x, u64 m) {
+    u64 r;
+    asm("{\n\t"
+        ".reg .u32 x0, x1, m0, m1, d0, d1;\n\t"
+        ".reg .pred neg;\n\t"
+        "mov.b64 {x0, x1}, %1;\n\t"
+        "mov.b64 {m0, m1}, %2;\n\t"
+        "sub.cc.u32 d0, x0, m0;\n\t"
+        "subc.u32 d1, x1, m1;\n\t"
+        "setp.lt.s32 neg, d1, 0;\n\t"
+        "selp.b32 d0, x0, d0, neg;\n\t"
+        "selp.b32 d1, x1, d1, neg;\n\t"
+        "mov.b64 %0, {d0, d1};\n\t"
+        "}" : "=l"(r) : "l"(x), "l"(m));
+    return r;
+}
+
+// An integer x < 2^52 as a double, exactly: x's bits under the exponent of
+// 2^52 are the double 2^52 + x, and the subtraction is exact.
+__device__ __forceinline__ double exact_double(u64 x) {
+    const long long bits = (long long)(0x4330000000000000ull | x);
+    return __dsub_rn(__longlong_as_double(bits), 0x1p52);
+}
+
+// The NTT kernels' product: a*w - q*p with Harvey's beta = 40 quotient
+// q = floor(a * ws40 / 2^40), ws40 = floor(w * 2^40 / p), for a < 2^39 and
+// w < p < 2^37.  q underestimates a*w/p by less than 1 + a/2^40, so the
+// result lies in [0, p * (1 + a/2^40)), below 1.5p for a < 4p: the lazy
+// contract of the JAX package's mulmod_shoup40.  Formed on the FP64 pipe,
+// every step exact.  Inputs as doubles: w and p exactly, ws = ws40 * 2^-40
+// (exact: a power-of-two scale of an integer below 2^40).
+//   q: fma(a, ws, 2^52) rounded down lands in [2^52, 2^53), where the doubles
+//      are the integers: it is 2^52 + q.
+//   h = a*w rounded; l = fma(a, w, -h) = a*w - h exactly (|l| <= 2^22, as
+//      a*w < 2^76).
+//   t = fma(-q, p, h) = h - q*p exactly: it is the integer r - l, far below
+//      2^53.  r = t + l, an integer below 2^38, read back through 2^52.
+__device__ __forceinline__ u64 mul_shoup40_lazy(u64 a, double w, double ws,
+                                                double p) {
+    const double ad = exact_double(a);
+    const double q = __dsub_rn(__fma_rd(ad, ws, 0x1p52), 0x1p52);
+    const double h = __dmul_rn(ad, w);
+    const double l = __fma_rn(ad, w, -h);
+    const double t = __fma_rn(-q, p, h);
+    return (u64)__double_as_longlong(__dadd_rn(t, __dadd_rn(l, 0x1p52)))
+           & 0xFFFFFFFFFFFFFull;
 }
 
 // x mod p for any 64-bit x

@@ -68,6 +68,17 @@ def shoup_precompute(w, p) -> np.ndarray:
     return out.reshape(w.shape)
 
 
+def shoup40_precompute(w, p) -> np.ndarray:
+    """Host-side exact floor(w * 2**40 / p) as uint64 (elementwise): the NTT
+    kernels' 40-bit Shoup word, below 2**40 for w < p."""
+    w = np.asarray(w, dtype=np.uint64)
+    p_b = np.broadcast_to(np.asarray(p, dtype=np.uint64), w.shape)
+    out = np.array([(int(x) << 40) // int(q)
+                    for x, q in zip(w.reshape(-1), p_b.reshape(-1))],
+                   dtype=np.uint64)
+    return out.reshape(w.shape)
+
+
 def barrett_mu(p) -> np.ndarray:
     """Host-side mu = floor(2**64 / p) as uint64 (elementwise)."""
     arr = np.asarray(p, dtype=np.uint64)

@@ -22,8 +22,9 @@ PyTorch's current stream (no synchronise; the output comes from
 
 The plain versions are the plainest exact schedule: radix 2, one pass per
 stage, every butterfly fully reduced.  The kernels keep values lazy between
-stages (Harvey) and use Shoup twiddles; both are exact arithmetic on
-canonical inputs, so they give the same bytes, and so does the JAX reference.
+stages (Harvey) and use 40-bit Shoup twiddles, as the JAX kernel does
+(``shoup_bits=40``); both are exact arithmetic on canonical inputs, so they
+give the same bytes, and so does the JAX reference.
 Nothing on the card's path calls the plain versions.
 """
 from __future__ import annotations
@@ -38,9 +39,10 @@ import torch
 
 from ..bfv.modmath import get_ntt_tables
 from . import build
-from .modmath import addmod, mulmod, shoup_precompute, submod
+from .modmath import addmod, mulmod, shoup40_precompute, submod
 
 KERNEL_NAMES = ("ntt", "intt")
+MAX_MODULUS = 1 << 37     # so that the kernels' lazy values stay below 2**39
 launch_counts = {name: 0 for name in KERNEL_NAMES}
 
 
@@ -53,17 +55,18 @@ def reset_launch_counts() -> None:
 class NttTables:
     """Twiddle tables for a stack of L moduli, int64 tensors on one device.
 
-    The ``*_shoup`` companions hold floor(w * 2**64 / p) for the word beside
-    them (uint64 words in int64 storage: only the kernels read them)."""
+    The ``*_shoup40`` companions hold floor(w * 2**40 / p) for the word beside
+    them, the port's copy of ``ops/pair.py::shoup40`` (only the kernels read
+    them; every modulus is below 2**37)."""
 
     n: int
-    p: torch.Tensor               # (L, 1)
-    root: torch.Tensor            # (L, n) forward twiddles, bit-reversed order
-    inv_root: torch.Tensor        # (L, n)
-    n_inv: torch.Tensor           # (L, 1): n^-1 (times the folded factor) mod p
-    root_shoup: torch.Tensor      # (L, n)
-    inv_root_shoup: torch.Tensor  # (L, n)
-    n_inv_shoup: torch.Tensor     # (L, 1)
+    p: torch.Tensor                 # (L, 1)
+    root: torch.Tensor              # (L, n) forward twiddles, bit-reversed
+    inv_root: torch.Tensor          # (L, n)
+    n_inv: torch.Tensor             # (L, 1): n^-1 (times the folded factor)
+    root_shoup40: torch.Tensor      # (L, n)
+    inv_root_shoup40: torch.Tensor  # (L, n)
+    n_inv_shoup40: torch.Tensor     # (L, 1)
 
 
 def _dev(arr, device) -> torch.Tensor:
@@ -73,12 +76,13 @@ def _dev(arr, device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _host_rows(p: int, n: int):
-    """(root, root_shoup, inv_root, inv_root_shoup, n_inv) of one modulus."""
+    """(root, root_shoup40, inv_root, inv_root_shoup40, n_inv) of one
+    modulus."""
     t = get_ntt_tables(p, n)
     root = np.asarray(t.root_powers, dtype=np.uint64)
     inv_root = np.asarray(t.inv_root_powers, dtype=np.uint64)
-    return (root, shoup_precompute(root, p), inv_root,
-            shoup_precompute(inv_root, p), int(t.n_inv))
+    return (root, shoup40_precompute(root, p), inv_root,
+            shoup40_precompute(inv_root, p), int(t.n_inv))
 
 
 def build_tables(moduli: Sequence[int], n: int, device,
@@ -86,8 +90,14 @@ def build_tables(moduli: Sequence[int], n: int, device,
     """Tables on `device`, which the caller names (there is no default).
     n_inv_factors: optional per-limb constants folded into the inverse
     transform's n^-1 multiply, so that ``intt`` returns ``factor * x``
-    without a separate pass (the engine folds t and t * q_hat_inv there)."""
+    without a separate pass (the engine folds t and t * q_hat_inv there).
+    Every modulus must lie below 2**37: the kernels' 40-bit Shoup product
+    relies on lazy values below 2**39."""
     moduli = [int(p) for p in moduli]
+    big = [p for p in moduli if p >= MAX_MODULUS]
+    if big:
+        raise ValueError(f"build_tables: moduli must be below 2**37, got "
+                         f"{big}")
     rows = [_host_rows(p, n) for p in moduli]
     n_inv = [r[4] for r in rows]
     if n_inv_factors is not None:
@@ -100,9 +110,10 @@ def build_tables(moduli: Sequence[int], n: int, device,
         root=stack(0),
         inv_root=stack(2),
         n_inv=_dev(col(n_inv), device),
-        root_shoup=stack(1),
-        inv_root_shoup=stack(3),
-        n_inv_shoup=_dev(shoup_precompute(col(n_inv), col(moduli)), device),
+        root_shoup40=stack(1),
+        inv_root_shoup40=stack(3),
+        n_inv_shoup40=_dev(shoup40_precompute(col(n_inv), col(moduli)),
+                           device),
     )
 
 
@@ -197,8 +208,8 @@ def _launch(name: str, x: torch.Tensor, tb: NttTables) -> torch.Tensor:
     lib = build.load_library()
     if n < 8 or n > lib.fhe_ntt_max_n():
         raise ValueError(f"{name}: the kernel takes 8 <= n <= "
-                         f"{lib.fhe_ntt_max_n()} (a row must fit one block's "
-                         f"shared memory), got n = {n}")
+                         f"{lib.fhe_ntt_max_n()} (a row and the limb's tables "
+                         f"must fit one block's shared memory), got n = {n}")
     out = torch.empty(x.shape, dtype=torch.int64, device=x.device)
     rows = math.prod(x.shape[:-1])
     with torch.cuda.device(x.device):      # the launch goes to x's card
@@ -206,14 +217,14 @@ def _launch(name: str, x: torch.Tensor, tb: NttTables) -> torch.Tensor:
         if name == "ntt":
             rc = lib.fhe_ntt_forward(
                 x.data_ptr(), out.data_ptr(), rows, L, n, stride,
-                tb.p.data_ptr(), tb.root.data_ptr(), tb.root_shoup.data_ptr(),
-                stream)
+                tb.p.data_ptr(), tb.root.data_ptr(),
+                tb.root_shoup40.data_ptr(), stream)
         else:
             rc = lib.fhe_ntt_inverse(
                 x.data_ptr(), out.data_ptr(), rows, L, n, stride,
                 tb.p.data_ptr(), tb.inv_root.data_ptr(),
-                tb.inv_root_shoup.data_ptr(), tb.n_inv.data_ptr(),
-                tb.n_inv_shoup.data_ptr(), stream)
+                tb.inv_root_shoup40.data_ptr(), tb.n_inv.data_ptr(),
+                tb.n_inv_shoup40.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
     launch_counts[name] += 1

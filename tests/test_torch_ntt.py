@@ -167,28 +167,116 @@ def test_folded_inverse_matches_pallas_pair_ntt_interpret():
 # ----------------------------------------------------------------------
 # the tables the kernels read
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("name", ["testnet.one", "bench.n8192", "bench.n1024"])
+PRESETS = {"testnet.one": TESTNET_ONE, "bench.n8192": BENCH_N8192,
+           "bench.n1024": BENCH_N1024}
+
+
+def _preset_moduli(name):
+    """Every modulus the preset's engine transforms over: q, Bsk, key."""
+    g = BfvContext(PRESETS[name])
+    return g, sorted(set(g.q_mods + g.Bsk + g.key_mods))
+
+
+@pytest.mark.parametrize("name", sorted(PRESETS))
 def test_shoup_tables_equal_python_integers(name):
-    """floor(w * 2**64 / p) for every twiddle of every limb the preset's
+    """floor(w * 2**40 / p) for every twiddle of every limb the preset's
     engine transforms over, and for n^-1 with a factor folded in."""
-    prm = {"testnet.one": TESTNET_ONE, "bench.n8192": BENCH_N8192,
-           "bench.n1024": BENCH_N1024}[name]
-    g = BfvContext(prm)
-    mods = sorted(set(g.q_mods + g.Bsk + g.key_mods))
-    factors = [(prm.t * 7 + i) % p for i, p in enumerate(mods)]
+    g, mods = _preset_moduli(name)
+    factors = [(g.t * 7 + i) % p for i, p in enumerate(mods)]
     tb = build_tables(mods, g.n, "cpu", n_inv_factors=factors)
     jt = [jax_tables(int(p), g.n) for p in mods]
     for li, p in enumerate(mods):
         for words, shoup, ref in (
-                (tb.root, tb.root_shoup, jt[li].root_powers),
-                (tb.inv_root, tb.inv_root_shoup, jt[li].inv_root_powers)):
+                (tb.root, tb.root_shoup40, jt[li].root_powers),
+                (tb.inv_root, tb.inv_root_shoup40, jt[li].inv_root_powers)):
             w = _np(words[li]).tolist()
             assert w == [int(v) for v in ref]
-            assert _np(shoup[li]).tolist() == [(v << 64) // p for v in w]
+            assert _np(shoup[li]).tolist() == [(v << 40) // p for v in w]
         n_inv = int(jt[li].n_inv) * factors[li] % p
         assert int(_np(tb.n_inv)[li, 0]) == n_inv
-        assert int(_np(tb.n_inv_shoup)[li, 0]) == (n_inv << 64) // p
+        assert int(_np(tb.n_inv_shoup40)[li, 0]) == (n_inv << 40) // p
         assert int(_np(tb.p)[li, 0]) == p
+
+
+@pytest.mark.parametrize("name", sorted(PRESETS))
+def test_shoup40_tables_equal_jax_pair_shoup40(name):
+    """The tables' 40-bit Shoup words against the JAX package's own
+    ``pair.shoup40``, which its NTT kernel (``shoup_bits=40``) reads."""
+    from fhe_precompiles_tpu.ops import pair as pr
+    g, mods = _preset_moduli(name)
+    tb = build_tables(mods, g.n, "cpu", n_inv_factors=[3] * len(mods))
+    p_col = np.array(mods, dtype=np.uint64).reshape(-1, 1)
+    for words, shoup in ((tb.root, tb.root_shoup40),
+                         (tb.inv_root, tb.inv_root_shoup40),
+                         (tb.n_inv, tb.n_inv_shoup40)):
+        assert np.array_equal(_np(shoup), pr.shoup40(_np(words), p_col))
+        assert np.array_equal(_np(shoup), tm.shoup40_precompute(_np(words),
+                                                                p_col))
+        assert int(_np(shoup).max()) < 1 << 40
+
+
+@pytest.mark.parametrize("p", [1 << 37, (1 << 37) + 1, (1 << 61) - 1])
+def test_build_tables_refuses_moduli_from_two_to_the_37(p):
+    with pytest.raises(ValueError, match="below 2"):
+        build_tables([G1.q_mods[0], p], 64, "cpu")
+
+
+def _mul_shoup40_lazy(a: int, w: int, ws40: int, p: int) -> int:
+    """csrc/modmath.cuh ``mul_shoup40_lazy`` step by step on the FP64 pipe's
+    terms, each double held as the exact value it stands for (Python
+    integers and ``float``, which rounds to nearest as the card's _rn steps
+    do).  Each step asserts the condition that makes it exact on the card."""
+    two52 = 1 << 52
+    assert a < 1 << 39 and w < p < 1 << 37 and ws40 < 1 << 40
+    # fma(a, ws40 * 2^-40, 2^52) rounded down: the doubles of [2^52, 2^53)
+    # are the integers, so it is 2^52 + floor(a * ws40 / 2^40)
+    q = (a * ws40 + (two52 << 40)) // (1 << 40) - two52
+    assert 0 <= q < 1 << 40
+    h = int(float(a) * float(w))                    # a*w rounded to nearest
+    l = a * w - h                                   # fma(a, w, -h): exact
+    assert abs(l) <= 1 << 22 and float(l) == l
+    t = h - q * p                                   # fma(-q, p, h)
+    assert abs(t) < 1 << 53 and float(t) == t
+    r = t + l                                       # t + (l + 2^52) - 2^52
+    assert 0 <= r < 1 << 52 and float(l + two52) == l + two52
+    return r
+
+
+def _shoup40_primes():
+    out = set()
+    for name in PRESETS:
+        out.update(_preset_moduli(name)[1])
+    return sorted(out)
+
+
+def test_shoup40_lazy_product_exact_below_one_and_a_half_p():
+    """The kernels' butterfly product for every prime of testnet.one (q,
+    q u Bsk, key), bench.n8192 and bench.n1024 (a 27-bit prime: a1 = 0):
+    a in {0, 1, p - 1, 2p, 4p - 1} and random a < 4p, w in {0, 1, p - 1} and
+    random w < p.  The emulation's remainder is congruent to a*w, lies in
+    [0, 1.5p), and equals the JAX package's ``pair.mulmod_shoup40`` (lazy),
+    run eagerly on the CPU."""
+    from fhe_precompiles_tpu.ops import pair as pr
+    rng = np.random.default_rng(25)
+    primes = _shoup40_primes()
+    assert min(primes) < 1 << 32 and max(primes) > 1 << 36
+    for p in primes:
+        a = np.concatenate([np.array([0, 1, p - 1, 2 * p, 4 * p - 1],
+                                     dtype=np.uint64),
+                            rng.integers(0, 4 * p, 59, dtype=np.uint64)])
+        w = np.concatenate([np.array([0, 1, p - 1], dtype=np.uint64),
+                            rng.integers(0, p, 29, dtype=np.uint64)])
+        a, w = (v.ravel() for v in np.meshgrid(a, w))
+        ws = tm.shoup40_precompute(w, p)
+        r = np.array([_mul_shoup40_lazy(int(x), int(y), int(s), p)
+                      for x, y, s in zip(a, w, ws)], dtype=np.uint64)
+        exact = (a.astype(object) * w.astype(object)) % p
+        assert np.array_equal(r.astype(object) % p, exact)
+        assert (2 * r.astype(object) < 3 * p).all()
+        pv = np.full_like(a, p)
+        ref = pr.mulmod_shoup40(pr.split64(a), pr.split64(w), pr.split64(ws),
+                                pr.split64(pv), lazy=True)
+        assert np.array_equal(r, _unpair(ref))
 
 
 def test_shoup_lazy_product_is_exact_for_any_word():
