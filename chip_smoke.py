@@ -15,8 +15,10 @@ form.  Before that it builds the CUDA kernels from
 ``fhe_precompiles_tpu_torch/csrc/`` and holds each of the ten (five BEHZ
 tail segments, forward and inverse butterfly NTT, forward and inverse
 four-step NTT, one four-step product) against its plain PyTorch version on
-the card, and the four-step transforms against the butterfly kernels too
-(exact integer arithmetic: the tolerance is 0, every word must be equal).
+the card (``floor_sk`` also on bench.n1024 and at ragged batches, as it has
+one instance per limb-count pair), and the four-step transforms against the
+butterfly kernels too (exact integer arithmetic: the tolerance is 0, every
+word must be equal).
 
 Phases, one JSON line each: device, build, kernels, main_path, round_trip,
 timing, four_step_path.  Any failure ends the run with a non-zero exit code
@@ -220,20 +222,31 @@ def dev(arr: np.ndarray) -> torch.Tensor:
 def imads_per_launch(name: str, c: tail.TailConstants, batch: int) -> int:
     """32-bit multiply-adds the function needs for `batch` ciphertext pairs,
     counted product by product as csrc/tail.cu forms them.  The m_tilde row
-    of to_bsk_ext multiplies 16-bit values: one each."""
-    k, nbsk, nB, kk, n = c.k, c.nbsk, c.nB, c.k_key, c.n
+    of to_bsk_ext multiplies 16-bit values: one each.  floor_sk forms its
+    products on the FP64 pipe (``floor_sk_fmas``); only its alpha mod q_i
+    takes a Barrett step, and only where steps_msk_mod_q is large."""
+    k, nbsk, kk, n = c.k, c.nbsk, c.k_key, c.n
+    barrett_alpha = c.steps_msk_mod_q > tail.MSK_CSUB_STEPS
     per_pos = {
         "to_bsk_ext": (k * SHOUP + k + 1
                        + nbsk * (k * SHOUP + BARRETT + 2 * SHOUP)),
         "dyadic": c.nb * 3 * MULMOD,
-        "floor_sk": (nbsk * (k * SHOUP + BARRETT + SHOUP) + nB * SHOUP
-                     + nB * SHOUP + BARRETT + SHOUP
-                     + k * (nB * SHOUP + 2 * BARRETT + SHOUP)),
+        "floor_sk": k * BARRETT if barrett_alpha else 0,
         "relin_dot": kk * (2 * k * MUL_LAZY + 2 * BARRETT),
         "mod_down": 2 * k * (BARRETT + SHOUP),
     }[name]
     rows = {"to_bsk_ext": 2 * batch, "floor_sk": 3 * batch}.get(name, batch)
     return per_pos * rows * n
+
+
+def floor_sk_fmas(c: tail.TailConstants, rows: int) -> int:
+    """FP64 multiply-adds of one floor_sk launch over `rows` rows, as
+    csrc/tail.cu floor_sk_at forms them: one 40-bit Shoup product for each
+    term of its sums, k + 1 for each of the nB y2 limbs, nB + 1 + k for
+    alpha, nB + 1 for each of the k output limbs."""
+    k, nB = c.k, c.nB
+    products = nB * (k + 1) + (nB + 1 + k) + k * (nB + 1)
+    return rows * c.n * products * SHOUP40_FMAS
 
 
 def ntt_fmas(name: str, rows: int, n: int) -> int:
@@ -278,6 +291,22 @@ def kernel_cases(ctx: BfvContext, c: tail.TailConstants, batch: int, rng):
         "mod_down": (tail.mod_down, tail.mod_down_plain,
                      (dev(rand_rows(rng, (batch, 2), key, n)), ct3[:, :2])),
     }
+
+
+def floor_sk_cases(ctx: BfvContext, c: tail.TailConstants, rng):
+    """floor_sk beyond the main path's shape: bench.n1024 (k = 1, alpha mod
+    q_i by a Barrett step) and ragged batches of testnet.one, each with the
+    hand-placed alpha cases in its first row.  (label, constants, input)."""
+    ctx1 = BfvContext(BENCH_N1024)
+    c1 = tail.TailConstants(ctx1, "cuda")
+    cases = []
+    for label, g, cc, batch in (("bench.n1024, B = 4", ctx1, c1, 4),
+                                ("testnet.one, B = 1", ctx, c, 1),
+                                ("testnet.one, B = 127", ctx, c, 127)):
+        tq = rand_rows(rng, (batch * 3,), g.q_mods + g.Bsk, g.n)
+        tq = tail_cases.place_alpha_cases(tq, g)
+        cases.append((label, cc, dev(tq.reshape(batch, 3, cc.nb, g.n))))
+    return cases
 
 
 def ntt_rows(rng, lead, mods, n) -> torch.Tensor:
@@ -543,10 +572,11 @@ def four_step_work(name: str, x: torch.Tensor, tb: fsm.MxuNttTables):
 def phase_kernels(eng: TorchEngine, eng4: TorchEngine, rng):
     """Kernel against plain version on the card.  The tail kernels at the
     main path's shapes on testnet.one and at a small batch on bench.n8192
-    (other limb counts); the NTT kernels at every shape of ``ntt_cases``,
-    and there and back again (``intt(ntt(x)) == x``).  Returns the rows of
-    the last ``kernels`` line and, per kernel, the comparison's counts with
-    the two terms of the bound."""
+    (other limb counts), floor_sk also at ``floor_sk_cases``; the NTT
+    kernels at every shape of ``ntt_cases``, and there and back again
+    (``intt(ntt(x)) == x``).  Returns the rows of the last ``kernels`` line
+    and, per kernel, the comparison's counts with the two terms of the
+    bound."""
     ctx8 = BfvContext(BENCH_N8192)
     c8 = tail.TailConstants(ctx8, "cuda")
     small = kernel_cases(ctx8, c8, 2, rng)
@@ -558,11 +588,24 @@ def phase_kernels(eng: TorchEngine, eng4: TorchEngine, rng):
         _, mism8, max_err8 = compare(k8, p8, in8, c8)
         nbytes = io_bytes(inputs, out)
         del out
+        fmas = (floor_sk_fmas(eng.consts, 3 * BATCH) if name == "floor_sk"
+                else 0)
         rows[name], terms = timed_row(
             name, kern, plain, inputs, eng.consts, nbytes,
-            imads_per_launch(name, eng.consts, BATCH), max(max_err, max_err8))
+            imads_per_launch(name, eng.consts, BATCH), max(max_err, max_err8),
+            fp64_fmas=fmas)
         checks[name] = {"name": name, "mismatches": mism,
                         "mismatches_n8192": mism8, **terms}
+    # floor_sk, one instance per limb-count pair, at more shapes
+    checks["floor_sk"]["cases"] = []
+    for label, c, x in floor_sk_cases(eng.golden, eng.consts, rng):
+        _, mism, max_err = compare(tail.floor_sk, tail.floor_sk_plain, (x,),
+                                   c)
+        checks["floor_sk"]["mismatches"] += mism
+        checks["floor_sk"]["cases"].append(
+            {"case": label, "shape": list(x.shape), "mismatches": mism})
+        rows["floor_sk"]["max_abs_err"] = max(rows["floor_sk"]["max_abs_err"],
+                                              max_err)
 
     kerns = {"ntt": (nttm.ntt, nttm.ntt_plain),
              "intt": (nttm.intt, nttm.intt_plain)}

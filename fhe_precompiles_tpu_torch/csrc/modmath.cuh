@@ -90,6 +90,31 @@ __device__ __forceinline__ u64 mul_shoup40_lazy(u64 a, double w, double ws,
            & 0xFFFFFFFFFFFFFull;
 }
 
+// The same product for a sum of terms (floor_sk): a, w, ws and p as doubles,
+// a an integer below 2^39, and the term r = a*w - q*p returned as a double,
+// exactly (r < 2^52: t + l is an integer that a double holds).  A sum of
+// such terms stays exact while it is below 2^53.
+__device__ __forceinline__ double shoup40_d(double a, double w, double ws,
+                                           double p) {
+    const double q = __dsub_rn(__fma_rd(a, ws, 0x1p52), 0x1p52);
+    const double h = __dmul_rn(a, w);
+    const double l = __fma_rn(a, w, -h);
+    return __dadd_rn(__fma_rn(-q, p, h), l);
+}
+
+// An integer-valued double 0 <= x < 2^52 as an integer: the low bits of
+// x + 2^52.
+__device__ __forceinline__ u64 exact_u64(double x) {
+    return (u64)__double_as_longlong(__dadd_rn(x, 0x1p52))
+           & 0xFFFFFFFFFFFFFull;
+}
+
+// x - m if x >= m, else x, for integer-valued doubles below 2^53
+__device__ __forceinline__ double csub_d(double x, double m) {
+    const double d = __dsub_rn(x, m);
+    return d >= 0.0 ? d : x;
+}
+
 // x mod p for any 64-bit x
 __device__ __forceinline__ u64 barrett(u64 x, u64 p, u64 mu) {
     return csub(x - __umul64hi(x, mu) * p, p);

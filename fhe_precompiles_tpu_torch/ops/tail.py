@@ -17,10 +17,12 @@ Each segment is the pointwise work between two NTTs of the pipeline in
                                                -> (B,2,k,n)
   ==============  ===========================  ==========================
 
-All five are bound by bytes on the card (one read of each input word, one
-write of each output word, a few dozen integer operations between), so the
-kernels in ``csrc/tail.cu`` are one thread per coefficient position with the
-limb loops in registers; see the notes there.
+Each kernel in ``csrc/tail.cu`` reads each input word once and writes each
+output word once.  Four of them are one thread per coefficient position with
+the limb loops in registers; ``floor_sk``, which does the most arithmetic a
+word, has one instance per limb-count pair, forms its products on the FP64
+pipe from the folded factors that ``TailConstants`` derives, and takes two
+positions a thread; see the notes there.
 
 A wrapper takes the plain version only for a tensor that lies on the CPU.
 For a CUDA tensor it launches its kernel on PyTorch's current stream (no
@@ -42,11 +44,14 @@ import torch
 
 from ..bfv.golden import BfvContext
 from . import build
-from .modmath import (addmod, barrett_mu, mulmod, negmod, shoup_precompute,
-                      submod)
+from .modmath import (addmod, barrett_mu, mulmod, negmod, shoup40_precompute,
+                      shoup_precompute, submod)
 
 # fixed limb capacities of the kernels' parameter struct (csrc/tail.cu)
 MAX_K, MAX_BSK, MAX_KEY = 3, 5, 4
+# floor_sk reduces alpha mod q_i by conditional subtracts up to this count of
+# them (steps_msk_mod_q), and by one Barrett step beyond it (csrc/tail.cu)
+MSK_CSUB_STEPS = 3
 
 KERNEL_NAMES = ("to_bsk_ext", "dyadic", "floor_sk", "relin_dot", "mod_down")
 launch_counts = {name: 0 for name in KERNEL_NAMES}
@@ -58,6 +63,13 @@ def reset_launch_counts() -> None:
 
 
 _U64 = ctypes.c_uint64
+_F64 = ctypes.c_double
+
+
+class Shoup40Struct(ctypes.Structure):
+    """Mirror of ``struct Shoup40``: w and floor(w * 2**40 / p) * 2**-40."""
+
+    _fields_ = [("w", _F64), ("ws", _F64)]
 
 
 class TailParamsStruct(ctypes.Structure):
@@ -65,7 +77,7 @@ class TailParamsStruct(ctypes.Structure):
 
     _fields_ = [
         ("k", ctypes.c_int32), ("nbsk", ctypes.c_int32),
-        ("k_key", ctypes.c_int32), ("reserved", ctypes.c_int32),
+        ("k_key", ctypes.c_int32), ("steps_msk_mod_q", ctypes.c_int32),
         ("mt", _U64),
         ("q", _U64 * MAX_K), ("q_mu", _U64 * MAX_K),
         ("bsk", _U64 * MAX_BSK), ("bsk_mu", _U64 * MAX_BSK),
@@ -77,13 +89,12 @@ class TailParamsStruct(ctypes.Structure):
         ("neg_inv_q_mt", _U64),
         ("q_mod_bsk", _U64 * MAX_BSK), ("q_mod_bsk_s", _U64 * MAX_BSK),
         ("inv_mt_bsk", _U64 * MAX_BSK), ("inv_mt_bsk_s", _U64 * MAX_BSK),
-        ("inv_q_bsk", _U64 * MAX_BSK), ("inv_q_bsk_s", _U64 * MAX_BSK),
-        ("bhat_inv", _U64 * MAX_BSK), ("bhat_inv_s", _U64 * MAX_BSK),
-        ("bhat_msk", _U64 * MAX_BSK), ("bhat_msk_s", _U64 * MAX_BSK),
-        ("inv_prodB_msk", _U64), ("inv_prodB_msk_s", _U64),
-        ("bhat_q", (_U64 * MAX_BSK) * MAX_K),
-        ("bhat_q_s", (_U64 * MAX_BSK) * MAX_K),
-        ("prodB_q", _U64 * MAX_K), ("prodB_q_s", _U64 * MAX_K),
+        ("q_d", _F64 * MAX_K), ("bsk_d", _F64 * MAX_BSK),
+        ("msk_half_p1", _F64),
+        ("fs_y2", (Shoup40Struct * (MAX_K + 1)) * (MAX_BSK - 1)),
+        ("fs_alpha", Shoup40Struct * (MAX_BSK + MAX_K)),
+        ("fs_out", (Shoup40Struct * (MAX_BSK - 1)) * MAX_K),
+        ("fs_corr", (Shoup40Struct * 2) * MAX_K),
         ("P", _U64), ("P_half", _U64),
         ("half_mod_q", _U64 * MAX_K),
         ("inv_P_q", _U64 * MAX_K), ("inv_P_q_s", _U64 * MAX_K),
@@ -92,6 +103,10 @@ class TailParamsStruct(ctypes.Structure):
 
 def _shoup(w: int, p: int) -> int:
     return int(shoup_precompute(np.uint64(w), np.uint64(p)))
+
+
+def _shoup40(w: int, p: int) -> int:
+    return int(shoup40_precompute(np.uint64(w), np.uint64(p)))
 
 
 def _mu(p: int) -> int:
@@ -132,6 +147,21 @@ class TailConstants:
         }
         self.neg_inv_q_mt = int(ctx.neg_inv_q_mod_mtilde)
         self.inv_prodB_msk = int(ctx.inv_prod_B_mod_msk)
+        # floor_sk's kernel folds consecutive constant factors (csrc/tail.cu
+        # floor_sk_at): y2_j from x_j and the y_i in one sum, alpha from the
+        # y2_j, x_msk and the y_i in one sum, each factor reduced mod its
+        # prime; its output sums take bhat_q and -/+ prodB_q as they are
+        B, ipb, iq = ctx.B, self.inv_prodB_msk, ctx.inv_q_mod_x
+        c_y2 = [iq[b] * ctx.b_hat_inv[j] % b for j, b in enumerate(B)]
+        h["fs_y2"] = [[-ctx.q_hat[i] * c_y2[j] % b for i in range(k)]
+                      + [c_y2[j]] for j, b in enumerate(B)]
+        h["fs_alpha"] = ([ctx.b_hat[j] * ipb % msk for j in range(nB)]
+                         + [-iq[msk] * ipb % msk]
+                         + [ctx.q_hat[i] * iq[msk] * ipb % msk
+                            for i in range(k)])
+        # alpha mod q_i by this many conditional subtracts (the reference's
+        # steps_msk_mod_q)
+        self.steps_msk_mod_q = max((msk - 1) // p for p in q)
         if self.has_keyswitch:
             self.P, self.P_half = int(ctx.P), int(ctx.P_half)
             h["half_mod_q"] = [ctx.P_half % p for p in q]
@@ -202,16 +232,26 @@ class TailConstants:
         s.neg_inv_q_mt = self.neg_inv_q_mt
         vec("q_mod_bsk", h["q_mod_bsk"], bsk)
         vec("inv_mt_bsk", h["inv_mt_bsk"], bsk)
-        vec("inv_q_bsk", h["inv_q_bsk"], bsk)
-        vec("bhat_inv", h["bhat_inv"], bsk[:self.nB])
-        vec("bhat_msk", h["bhat_msk"], [msk] * self.nB)
-        s.inv_prodB_msk = self.inv_prodB_msk
-        s.inv_prodB_msk_s = _shoup(self.inv_prodB_msk, msk)
+
+        def shoup40(field, w, p):         # w and its word, exact as doubles
+            field.w = float(w)
+            field.ws = float(_shoup40(w, p)) * 2.0 ** -40
+
+        s.steps_msk_mod_q = self.steps_msk_mod_q
         for i, p in enumerate(q):
+            s.q_d[i] = float(p)
             for j in range(self.nB):
-                s.bhat_q[i][j] = h["bhat_q"][i][j]
-                s.bhat_q_s[i][j] = _shoup(h["bhat_q"][i][j], p)
-        vec("prodB_q", h["prodB_q"], q)
+                shoup40(s.fs_out[i][j], h["bhat_q"][i][j], p)
+            shoup40(s.fs_corr[i][0], -h["prodB_q"][i] % p, p)
+            shoup40(s.fs_corr[i][1], h["prodB_q"][i], p)
+        for j, x in enumerate(bsk):
+            s.bsk_d[j] = float(x)
+        s.msk_half_p1 = float(msk // 2 + 1)
+        for j in range(self.nB):
+            for i in range(k + 1):
+                shoup40(s.fs_y2[j][i], h["fs_y2"][j][i], bsk[j])
+        for t, w in enumerate(h["fs_alpha"]):
+            shoup40(s.fs_alpha[t], w, msk)
         if self.has_keyswitch:
             s.P, s.P_half = self.P, self.P_half
             vec("half_mod_q", h["half_mod_q"], q, shoup=False)
@@ -340,9 +380,9 @@ def _library(c: TailConstants):
         if lib.fhe_tail_params_size() != ctypes.sizeof(TailParamsStruct):
             raise RuntimeError("TailParams layout differs between tail.cu "
                                "and tail.py")
-        lim = (ctypes.c_int * 3)()
+        lim = (ctypes.c_int * 4)()
         lib.fhe_tail_limits(lim)
-        if tuple(lim) != (MAX_K, MAX_BSK, MAX_KEY):
+        if tuple(lim) != (MAX_K, MAX_BSK, MAX_KEY, MSK_CSUB_STEPS):
             raise RuntimeError("limb capacities differ between tail.cu and "
                                "tail.py")
         _checked_abi = True
@@ -394,12 +434,16 @@ def dyadic(fa: torch.Tensor, fb: torch.Tensor,
 
 
 def floor_sk(tq: torch.Tensor, c: TailConstants) -> torch.Tensor:
-    """Kernel for PairTailPallas.floor_sk.  Bound by bytes: reads rows*nb*n
-    words, writes rows*k*n."""
+    """Kernel for PairTailPallas.floor_sk.  Reads rows*nb*n words, writes
+    rows*k*n; two positions a thread in 16-byte words, so n must be even and
+    the input 16-byte aligned (the output from ``torch.empty`` is)."""
     if tq.device.type == "cpu":
         return floor_sk_plain(tq, c)
     lead = tuple(tq.shape[:-2])
     _check(tq, "floor_sk", lead + (c.nb, c.n))
+    if c.n % 2 or tq.data_ptr() % 16:
+        raise ValueError("floor_sk: n must be even and the input 16-byte "
+                         "aligned")
     prm, lib = c.struct, _library(c)
     out = torch.empty(lead + (c.k, c.n), dtype=torch.int64, device=tq.device)
     _launch("floor_sk", lib.fhe_tail_floor_sk, tq.data_ptr(), out.data_ptr(),

@@ -58,7 +58,7 @@ def test_sources_name_no_jax_import():
     # _build/ holds what is made at run time, not the package's sources
     files = [f for f in root.rglob("*.py")
              if "_build" not in f.relative_to(root).parts]
-    files.append(root.parent / "chip_smoke.py")
+    files += [root.parent / "chip_smoke.py", root.parent / "chip_compare.py"]
     pat = re.compile(r"^\s*(import|from)\s+(jax|fhe_precompiles_tpu)(\.|\s|$)",
                      re.M)
     assert len(files) > 10

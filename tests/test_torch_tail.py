@@ -8,6 +8,8 @@ centring and the zero case of the negation.  Tolerance: none -- all
 arithmetic is exact modular integer math, every comparison is
 ``np.array_equal`` on uint64.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -23,7 +25,8 @@ from fhe_precompiles_tpu.params import TESTNET_ONE as JAX_TESTNET_ONE
 
 from fhe_precompiles_tpu_torch.bfv import BfvContext
 from fhe_precompiles_tpu_torch.ops import tail, tail_cases
-from fhe_precompiles_tpu_torch.params import BENCH_N8192, TESTNET_ONE
+from fhe_precompiles_tpu_torch.params import (BENCH_N1024, BENCH_N8192,
+                                              TESTNET_ONE)
 
 # the suite runs several workers side by side: keep torch to one thread each
 torch.set_num_threads(1)
@@ -252,8 +255,137 @@ def test_struct_holds_exact_shoup_and_barrett_constants(one):
             w = g.q_hat[i] % x
             assert s.qhat_bsk[j][i] == w
             assert s.qhat_bsk_s[j][i] == (w << 64) // x
-    for i, p in enumerate(g.q_mods):
-        for j in range(len(g.B)):
-            w = g.b_hat[j] % p
-            assert s.bhat_q[i][j] == w and s.bhat_q_s[i][j] == (w << 64) // p
     assert s.P == g.P and s.P_half == g.P >> 1
+
+    # floor_sk's folded factors and their beta = 40 words, from the
+    # definitions with Python integers (inverses by pow, not the context's)
+    def holds(f, w, p):
+        assert f.w == w and int(f.w) < p
+        assert f.ws * 2 ** 40 == (w << 40) // p          # exact double
+    q, B, msk = math.prod(g.q_mods), math.prod(g.B), g.m_sk
+    k, nB = g.k, len(g.B)
+    q_hat = [q // p for p in g.q_mods]
+    ipb = pow(B, -1, msk)
+    assert s.steps_msk_mod_q == max((msk - 1) // p for p in g.q_mods)
+    assert s.msk_half_p1 == msk // 2 + 1
+    assert [s.q_d[i] for i in range(k)] == g.q_mods
+    assert [s.bsk_d[j] for j in range(nB + 1)] == g.Bsk
+    for j, b in enumerate(g.B):
+        c = pow(q, -1, b) * pow(B // b, -1, b) % b
+        holds(s.fs_y2[j][k], c, b)
+        for i in range(k):
+            holds(s.fs_y2[j][i], -q_hat[i] * c % b, b)
+        holds(s.fs_alpha[j], (B // b) * ipb % msk, msk)
+    holds(s.fs_alpha[nB], -pow(q, -1, msk) * ipb % msk, msk)
+    for i in range(k):
+        holds(s.fs_alpha[nB + 1 + i], q_hat[i] * pow(q, -1, msk) * ipb % msk,
+              msk)
+    for i, p in enumerate(g.q_mods):
+        for j, b in enumerate(g.B):
+            holds(s.fs_out[i][j], (B // b) % p, p)
+        holds(s.fs_corr[i][0], -B % p, p)
+        holds(s.fs_corr[i][1], B % p, p)
+
+
+# ----------------------------------------------------------------------
+# csrc/tail.cu floor_sk_at, step by step on exact integers
+# ----------------------------------------------------------------------
+def _term(a: int, f, p: int) -> int:
+    """csrc/modmath.cuh ``shoup40_d``: a * w - q * p with the beta = 40
+    quotient, each FP64 step held as the exact value it stands for (Python
+    ``float`` rounds to nearest as the card's _rn steps do).  Asserts the
+    kernel's input bound and each step's exactness condition."""
+    w, ws40 = int(f.w), int(f.ws * 2 ** 40)
+    assert 0 <= a < 1 << 39 and w < p < 1 << 37 and ws40 < 1 << 40
+    q = a * ws40 >> 40              # fma(a, ws, 2^52) rounded down, - 2^52
+    h = int(float(a) * float(w))    # a*w rounded to nearest
+    l = a * w - h                   # fma(a, w, -h): exact
+    t = h - q * p                   # fma(-q, p, h): exact
+    assert float(l) == l and abs(t) < 1 << 53 and float(t) == t
+    r = t + l                       # the integer term, exact below 2^52
+    assert (r - a * w) % p == 0
+    assert 0 <= r and r << 40 < p * ((1 << 40) + a)     # r < p (1 + a/2^40)
+    return r
+
+
+def _dsum(terms) -> int:
+    acc = 0
+    for r in terms:                 # __dadd_rn of integers below 2^53
+        acc += r
+        assert acc < 1 << 53
+    return acc
+
+
+def _canonical(x: int, terms: int, p: int) -> int:
+    """``canonical<terms>``: x < 9 * terms / 8 * p (the comment's bound),
+    then conditional subtracts of 2^e p, e from m - 1 down to 0."""
+    assert 8 * x < 9 * terms * p
+    m = 0
+    while (8 << m) < 9 * terms:
+        m += 1
+    for e in reversed(range(m)):
+        if x >= p << e:
+            x -= p << e
+    assert 0 <= x < p
+    return x
+
+
+def _emulate_floor_sk_at(y, x, s, k: int, nbsk: int):
+    nB = nbsk - 1
+    y2 = []
+    for j in range(nB):
+        p = int(s.bsk_d[j])
+        total = _dsum([_term(x[j], s.fs_y2[j][k], p)]
+                      + [_term(y[i], s.fs_y2[j][i], p) for i in range(k)])
+        y2.append(_canonical(total, k + 1, p))
+    msk = int(s.bsk_d[nB])
+    total = _dsum([_term(x[nB], s.fs_alpha[nB], msk)]
+                  + [_term(y2[j], s.fs_alpha[j], msk) for j in range(nB)]
+                  + [_term(y[i], s.fs_alpha[nB + 1 + i], msk)
+                     for i in range(k)])
+    alpha = _canonical(total, nB + 1 + k, msk)    # canonical before centring
+    big = alpha >= s.msk_half_p1
+    mag = msk - alpha if big else alpha
+    assert mag <= msk // 2
+    out = []
+    for i in range(k):
+        p = int(s.q_d[i])
+        if s.steps_msk_mod_q <= tail.MSK_CSUB_STEPS:
+            assert mag < (s.steps_msk_mod_q + 1) * p
+            red = mag
+            for _ in range(s.steps_msk_mod_q):
+                red = red - p if red >= p else red
+        else:                                     # one Barrett step: exact
+            red = mag % p
+        assert red < p
+        total = _dsum([_term(red, s.fs_corr[i][int(big)], p)]
+                      + [_term(y2[j], s.fs_out[i][j], p) for j in range(nB)])
+        out.append(_canonical(total, nB + 1, p))
+    return out
+
+
+@pytest.mark.parametrize("params", [TESTNET_ONE, BENCH_N8192, BENCH_N1024],
+                         ids=["testnet.one", "bench.n8192", "bench.n1024"])
+def test_floor_sk_kernel_steps_emulated_match_plain(params):
+    """The CUDA floor_sk's arithmetic, position by position with Python
+    integers from the kernel's own struct, asserting every bound its comments
+    state, against ``floor_sk_plain``: k = 2, 3, 1 and the csub and Barrett
+    branches of alpha mod q_i.  Rows: two random, every residue p - 1, all
+    zeros, and the hand-placed alpha cases; n = 64."""
+    g = BfvContext(params)
+    c = tail.TailConstants(g, "cpu")
+    s, k, nbsk = c.struct, c.k, c.nbsk
+    mods = g.q_mods + g.Bsk
+    n = 64
+    tq = _rand_rows(np.random.default_rng(107), (5, c.nb), mods, n)
+    tq[2] = np.array(mods, dtype=np.uint64)[:, None] - np.uint64(1)
+    tq[3] = 0
+    tq[4:] = tail_cases.place_alpha_cases(tq[4:], g)
+    want = _np(tail.floor_sk(_t(tq), c))
+    got = np.zeros_like(want)
+    for row in range(tq.shape[0]):
+        for pos in range(n):
+            col = [int(v) for v in tq[row, :, pos]]
+            got[row, :, pos] = _emulate_floor_sk_at(col[:k], col[k:], s, k,
+                                                    nbsk)
+    assert np.array_equal(got, want)
