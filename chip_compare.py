@@ -1,18 +1,23 @@
-"""The ``floor_sk`` kernel of this checkout against the one of an earlier
-checkout of the port, on one NVIDIA GPU, in turns.
+"""A kernel of this checkout against the same kernel of an earlier checkout
+of the port, on one NVIDIA GPU, in turns: ``floor_sk`` (the default) or
+kernel 8, the fused four-step NTT (``--kernel four_step``).
 
     git archive <commit> fhe_precompiles_tpu_torch | tar -x -C <dir>
-    python3 chip_compare.py --parent <dir> [--out <dir for listings>]
+    python3 chip_compare.py --parent <dir> [--kernel floor_sk|four_step]
+                            [--out <dir for listings>]
 
 `<dir>` holds the earlier ``fhe_precompiles_tpu_torch`` (a git-ignored
 folder such as ``fhe_precompiles_tpu_torch/_build/parent``); it is imported
 under another name and builds its own kernels into its own ``_build``.
 Prints one JSON line each:
 
-  build      registers a thread of each floor_sk instance, from ``ptxas``;
-  sass       instructions of each floor_sk instance by opcode, from
-             ``cuobjdump -sass`` (the listings go to ``--out``, by default
-             the git-ignored ``fhe_precompiles_tpu_torch/_build/compare``);
+  build      registers a thread and spill stores of each instance of the
+             kernel, from ``ptxas``;
+  sass       instructions of each instance by opcode, from ``cuobjdump
+             -sass`` (the listings go to ``--out``, by default the
+             git-ignored ``fhe_precompiles_tpu_torch/_build/compare``);
+
+floor_sk:
   copy       a kernel that only moves floor_sk's words, on each launch shape:
              one 8-byte word of each limb a thread, and two positions a
              thread in 16-byte words;
@@ -22,6 +27,20 @@ Prints one JSON line each:
              ``_mul_relin`` at B = 128 (median of 12), its staged floor_sk row
              (``chip_smoke.staged_medians``) and B = 256 / 512 (median of 6)
              with each kernel in the engine, in the same order.
+
+four_step:
+  ablations  kernel 8 built again with one part taken out, cold at both
+             shapes below (outputs unused): its tensor-core products (the
+             wgmma instruction made a PTX comment), the fold of its group
+             sums, both: what each part costs;
+  turns      four_step_ntt at (128, 2, 5, 4096) and four_step_intt at
+             (128, 3, 5, 4096) with t * q_hat_inv folded (the main path's
+             shapes on the four-step engine) cold, old, new, new, old, each
+             launch first held word for word against the plain version;
+             then ``_mul_relin`` on ``TorchEngine(TESTNET_ONE,
+             ntt_backend="four_step")`` at B = 128 (median of 12) and its
+             staged NTT rows and total, with each kernel in the engine, in
+             the same order.
 
 Then the card's name and power limit.  Needs a CUDA card and ``nvcc``.
 """
@@ -49,6 +68,7 @@ import chip_smoke as cs
 from fhe_precompiles_tpu_torch import convert
 from fhe_precompiles_tpu_torch.bfv import BfvContext
 from fhe_precompiles_tpu_torch.ops import build, tail, tail_cases
+from fhe_precompiles_tpu_torch.ops import four_step as fsm
 from fhe_precompiles_tpu_torch.ops.engine import TorchEngine
 from fhe_precompiles_tpu_torch.params import BENCH_N8192, TESTNET_ONE
 
@@ -114,10 +134,9 @@ def load_parent(root: Path):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["fhe_parent"] = mod
     spec.loader.exec_module(mod)
-    return (importlib.import_module("fhe_parent.ops.tail"),
-            importlib.import_module("fhe_parent.ops.build"),
-            importlib.import_module("fhe_parent.bfv"),
-            importlib.import_module("fhe_parent.params"))
+    return {name: importlib.import_module("fhe_parent." + name)
+            for name in ("ops.tail", "ops.build", "ops.four_step", "bfv",
+                         "params")}
 
 
 def built_library(bld) -> Path:
@@ -125,14 +144,14 @@ def built_library(bld) -> Path:
                key=lambda p: p.stat().st_mtime)
 
 
-def ptxas_registers(text: str) -> dict:
-    """Registers and spill stores of each floor_sk function in ``nvcc
-    -Xptxas -v`` output."""
+def ptxas_registers(text: str, kernel: str) -> dict:
+    """Registers and spill stores of each function whose name holds `kernel`
+    in ``nvcc -Xptxas -v`` output."""
     out, current = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            current = m.group(1) if "floor_sk" in m.group(1) else None
+            current = m.group(1) if kernel in m.group(1) else None
         m = re.search(r"(\d+) bytes spill stores", line)
         if current and m:
             out.setdefault(current, {})["spill_store_bytes"] = int(m.group(1))
@@ -143,8 +162,9 @@ def ptxas_registers(text: str) -> dict:
     return out
 
 
-def sass_counts(so: Path, dump: Path) -> dict:
-    """Instructions of each floor_sk function, by opcode (``cuobjdump``)."""
+def sass_counts(so: Path, dump: Path, kernel: str) -> dict:
+    """Instructions of each function whose name holds `kernel`, by opcode
+    (``cuobjdump``)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                           text=True, check=True).stdout
@@ -152,7 +172,7 @@ def sass_counts(so: Path, dump: Path) -> dict:
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1) if "floor_sk" in m.group(1) else None
+            name = m.group(1) if kernel in m.group(1) else None
             if name:
                 out[name] = Counter()
             continue
@@ -212,42 +232,34 @@ def mul_relin_inputs(eng: TorchEngine):
     return a, torch.roll(a, 1, dims=0), rk
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", required=True, type=Path)
-    ap.add_argument("--out", type=Path,
-                    default=Path("fhe_precompiles_tpu_torch/_build/compare"))
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("chip_compare: no CUDA card", file=sys.stderr)
-        return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    args.out.mkdir(parents=True, exist_ok=True)
-    old_tail, old_build, old_bfv, old_params = load_parent(args.parent)
-
-    # build both with ptxas's report (a rebuild: the reports are wanted)
+def build_both(old, args, card: str) -> None:
+    """Both libraries rebuilt with ptxas's report (the reports are wanted);
+    the build and sass lines for the compared kernel."""
     regs = {}
-    for label, bld in (("old", old_build), ("new", build)):
+    for label, bld in (("old", old["ops.build"]), ("new", build)):
         for so in bld.BUILD_DIR.glob("libfhe_kernels_*.so"):
             so.unlink()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             bld.load_library(verbose=True)
         (args.out / f"ptxas_{label}.txt").write_text(buf.getvalue())
-        regs[label] = ptxas_registers(buf.getvalue())
+        regs[label] = ptxas_registers(buf.getvalue(), args.kernel)
     emit({"phase": "build", "card": card, "registers": regs})
-    emit({"phase": "sass", "old": sass_counts(built_library(old_build),
-                                              args.out / "sass_old.txt"),
-          "new": sass_counts(built_library(build), args.out / "sass_new.txt")})
+    emit({"phase": "sass",
+          "old": sass_counts(built_library(old["ops.build"]),
+                             args.out / "sass_old.txt", args.kernel),
+          "new": sass_counts(built_library(build), args.out / "sass_new.txt",
+                             args.kernel)})
 
+
+def compare_floor_sk(old, args, card: str) -> None:
     rng = np.random.default_rng(cs.SEED)
     eng = TorchEngine(TESTNET_ONE)
     ctx8 = BfvContext(BENCH_N8192)
     c_new = {"testnet.one": eng.consts,
              "bench.n8192": tail.TailConstants(ctx8, "cuda")}
-    c_old = {name: old_tail.TailConstants(old_bfv.BfvContext(prm), "cuda")
+    old_tail, old_params = old["ops.tail"], old["params"]
+    c_old = {name: old_tail.TailConstants(old["bfv"].BfvContext(prm), "cuda")
              for name, prm in (("testnet.one", old_params.TESTNET_ONE),
                                ("bench.n8192", old_params.BENCH_N8192))}
     inputs = {"testnet.one": floor_sk_input(eng.golden, eng.consts, 128, rng),
@@ -316,6 +328,165 @@ def main() -> int:
         r["b512_median"] = statistics.median(r["b512"])
     emit({"phase": "turns", "card": card, "cold_ms": turns,
           "mul_relin": path})
+
+
+# kernel 8 with a part taken out (text of csrc/four_step.cu -> its stand-in)
+WGMMA_TEXT = '"wgmma.mma_async.sync.aligned.m64n32k32.s32.u8.u8 "'
+FOLD_TEXT = """        if (s == 8) x[e] = v << 32;
+        else x[e] += v << (8 * (s >= 4 ? s - 4 : s));
+    }
+    if (s != 4) return;"""
+NO_FOLD = """        x[e] = v;
+    }
+    return;"""
+ABLATIONS = {
+    "no_tensor_core_products": {WGMMA_TEXT: '"// "'},
+    "no_fold": {FOLD_TEXT: NO_FOLD},
+    "neither": {WGMMA_TEXT: '"// "', FOLD_TEXT: NO_FOLD},
+}
+
+
+def ablation_library(out_dir: Path, name: str, subs: dict):
+    """csrc/four_step.cu with `subs` applied, built into its own library."""
+    d = out_dir / name
+    d.mkdir(parents=True, exist_ok=True)
+    text = (build.CSRC / "four_step.cu").read_text()
+    for old, new in subs.items():
+        if old not in text:
+            raise AssertionError(f"ablation {name}: text not found: {old!r}")
+        text = text.replace(old, new)
+    (d / "four_step.cu").write_text(text)
+    for h in build.CSRC.glob("*.cuh"):
+        shutil.copy(h, d / h.name)
+    so = d / "lib.so"
+    subprocess.run([build._find_nvcc(), *build.NVCC_FLAGS, "-I", str(d),
+                    "-o", str(so), str(d / "four_step.cu")], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.fhe_four_step_ntt.argtypes = [vp, vp, ll, i, i, i, ll, vp, vp, vp,
+                                      vp, vp, i, vp]
+    return lib
+
+
+def kernel8_of(lib, d: str):
+    """A wrapper in the shape of ``fsm.ntt`` / ``fsm.intt`` around the
+    kernel 8 entry point of `lib`."""
+    inverse = d == "intt"
+
+    def kern(x, tb):
+        out = torch.empty_like(x)
+        L = tb.p.shape[0]
+        w_r, w_c, grid, grid_s = ((tb.Ai_wg, tb.B0i_wg, tb.TiT,
+                                   tb.TiT_shoup40) if inverse else
+                                  (tb.A_wg, tb.B0_wg, tb.T, tb.T_shoup40))
+        rc = lib.fhe_four_step_ntt(
+            x.data_ptr(), out.data_ptr(), x.numel() // tb.n, L, tb.R, tb.C,
+            L * tb.n, tb.fold_scalars.data_ptr(), w_r.data_ptr(),
+            w_c.data_ptr(), grid.data_ptr(), grid_s.data_ptr(), int(inverse),
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"ablation launch: cudaError {rc}")
+        return out
+    return kern
+
+
+def compare_four_step(old, args, card: str) -> None:
+    old_fs = old["ops.four_step"]
+    eng4 = TorchEngine(TESTNET_ONE, ntt_backend="four_step")
+    g, prm = eng4.golden, eng4.params
+    all_mods = g.q_mods + g.Bsk
+    folded = ([prm.t * int(g.q_hat_inv[i]) % int(p)
+               for i, p in enumerate(g.q_mods)] + [prm.t] * len(g.Bsk))
+    # the parent's tables of each of the engine's stacks, by the new tables
+    old_tables = {}
+    for stack, mods, factors in (("q", g.q_mods, None),
+                                 ("all", all_mods, None),
+                                 ("all_t", all_mods, folded),
+                                 ("key", g.key_mods, None)):
+        old_tables[id(eng4.ntts[stack].tables)] = old_fs.build_mxu_tables(
+            mods, g.n, "cuda", n_inv_factors=factors)
+    rng = np.random.default_rng(cs.SEED)
+    cases = {"four_step_ntt (128, 2, 5, 4096)":
+             ("ntt", eng4.ntts["all"].tables,
+              cs.ntt_rows(rng, (cs.BATCH, 2), all_mods, g.n)),
+             "four_step_intt (128, 3, 5, 4096), folded":
+             ("intt", eng4.ntts["all_t"].tables,
+              cs.ntt_rows(rng, (cs.BATCH, 3), all_mods, g.n))}
+    new_k = {"ntt": fsm.ntt, "intt": fsm.intt}
+    plain = {"ntt": fsm.ntt_plain, "intt": fsm.intt_plain}
+    kern = {"new": lambda d: new_k[d],
+            "old": lambda d: (lambda x, tb: getattr(old_fs, d)(
+                x, old_tables[id(tb)]))}
+    for label, (d, tb, x) in cases.items():
+        want = plain[d](x, tb)
+        for who in ("old", "new"):
+            if not torch.equal(kern[who](d)(x, tb), want):
+                raise AssertionError(f"the {who} kernel differs from the "
+                                     f"plain version: {label}")
+    turns = {}
+    for who in ("old", "new", "new", "old"):
+        for label, (d, tb, x) in cases.items():
+            turns.setdefault(f"{who} {label}", []).append(
+                cs.cold_ms(kern[who](d), (x,), tb))
+
+    # the whole kernel and each ablation, in turns, there and back
+    libs = {name: ablation_library(args.out / "ablations", name, subs)
+            for name, subs in ABLATIONS.items()}
+    order = ["whole", *ABLATIONS]
+    parts = {name: {} for name in order}
+    for name in order + order[::-1]:
+        for label, (d, tb, x) in cases.items():
+            k = new_k[d] if name == "whole" else kernel8_of(libs[name], d)
+            parts[name].setdefault(label, []).append(
+                cs.cold_ms(k, (x,), tb))
+    emit({"phase": "ablations", "card": card, "cold_ms": parts})
+
+    # the four-step engine with each kernel
+    a, b, rk = mul_relin_inputs(eng4)
+    want = eng4._mul_relin(a, b, rk)
+    cs.call_times(lambda: eng4._mul_relin(a, b, rk), 12)    # warm-up only
+    path = {}
+    try:
+        for who in ("old", "new", "new", "old"):
+            fsm.ntt, fsm.intt = kern[who]("ntt"), kern[who]("intt")
+            if not torch.equal(eng4._mul_relin(a, b, rk), want):
+                raise AssertionError(f"_mul_relin with the {who} kernel "
+                                     "differs")
+            r = path.setdefault(who, {"batch_ms": [], "staged": []})
+            r["batch_ms"] += cs.call_times(lambda: eng4._mul_relin(a, b, rk),
+                                           6)
+            r["staged"].append(cs.staged_medians(eng4, (a, b, rk), want, 5))
+    finally:
+        fsm.ntt, fsm.intt = new_k["ntt"], new_k["intt"]
+    for r in path.values():
+        r["batch_ms_median"] = statistics.median(r["batch_ms"])
+        r["staged_total"] = [sum(st.values()) for st in r["staged"]]
+    emit({"phase": "turns", "card": card, "cold_ms": turns,
+          "mul_relin": path})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", required=True, type=Path)
+    ap.add_argument("--kernel", choices=("floor_sk", "four_step"),
+                    default="floor_sk")
+    ap.add_argument("--out", type=Path,
+                    default=Path("fhe_precompiles_tpu_torch/_build/compare"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_compare: no CUDA card", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    args.out.mkdir(parents=True, exist_ok=True)
+    old = load_parent(args.parent)
+    build_both(old, args, card)
+    if args.kernel == "four_step":
+        compare_four_step(old, args, card)
+    else:
+        compare_floor_sk(old, args, card)
     print(card, flush=True)
     return 0
 

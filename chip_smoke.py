@@ -85,6 +85,10 @@ MUL_LAZY = MULHI + 2 * MULLO + BARRETT
 # float32 rate (the data sheet's 34 TFLOP/s, rounded): 16.75e12
 # multiply-adds a second, as the 32-bit integer pipe.
 SHOUP40_FMAS = 4
+# four_step_kernel's x - floor(x * floor(2^52 / p) / 2^52) * p: two more;
+# its fold of the nine group sums: eight 32 x 32 -> 64-bit multiply-adds
+FOUR_STEP_REDUCE_FMAS = 2
+FOUR_STEP_FOLD_IMADS = 8
 PEAK_FP64_FMA_PER_S = 16.75e12
 MULMOD = MUL_LAZY + BARRETT
 L2_BYTES = 50 * 2 ** 20           # the card's L2 cache
@@ -453,9 +457,9 @@ def four_step_kernel_checks(eng4: TorchEngine, eng: TorchEngine, rng,
             max_err[name] = max(max_err[name], err)
             del got
         if k8 not in rows:            # the first case of each direction
-            nbytes, imads, int8_ops = four_step_work(k8, x, tb)
+            nbytes, imads, int8_ops, fmas = four_step_work(k8, x, tb)
             rows[k8], terms = timed_row(k8, fused[d], plain[d], (x,), tb,
-                                        nbytes, imads, 0, int8_ops)
+                                        nbytes, imads, 0, int8_ops, fmas)
             checks[k8].update(terms)
             checks[k8]["cases"][-1]["ms"] = rows[k8]["ms"]
             if main_input is None:
@@ -483,8 +487,8 @@ def four_step_kernel_checks(eng4: TorchEngine, eng: TorchEngine, rng,
              "mismatches": mism})
         max_err["four_step_phase"] = max(max_err["four_step_phase"], err)
         if mode == "pre":            # the row of the kernels line
-            nbytes, imads, int8_ops = four_step_work("four_step_phase", m,
-                                                     tb)
+            nbytes, imads, int8_ops, _ = four_step_work("four_step_phase",
+                                                        m, tb)
             rows["four_step_phase"], terms = timed_row(
                 "four_step_phase", kern, ref, (m,), tb, nbytes, imads, 0,
                 int8_ops)
@@ -549,24 +553,31 @@ def timed_row(name, kern, plain, inputs, c, nbytes, imads, max_err,
 
 
 def four_step_work(name: str, x: torch.Tensor, tb: fsm.MxuNttTables):
-    """(bytes, 32-bit multiply-adds, int8 tensor-core operations) of one
-    launch on `x`, as csrc/four_step.cu does the work; a phase launch with
-    its grid.  Bytes: each input and output word once, the limbs' digit
-    planes, grid and scalars once.  Tensor cores: 25 digit-pair products of
-    each multiply-add of each matrix product, two operations each.  Integer
-    pipe: for each output of each product a Barrett step and a Shoup product
-    (the recombination), and one Shoup product a word for the grid."""
+    """(bytes, 32-bit multiply-adds, int8 tensor-core operations, FP64
+    multiply-adds) of one launch on `x`, as csrc/four_step.cu does the work;
+    a phase launch with its grid.  Bytes: each input and output word once,
+    the limbs' weights (kernel 8: in wgmma's layout, padded), grid and
+    scalars once.  Tensor cores: 25 digit-pair products of each multiply-add
+    of each matrix product, two operations each.  Kernel 9 on the integer
+    pipe: for each output of its product a Barrett step and a Shoup product
+    (the recombination), and one Shoup product a word for the grid.  Kernel
+    8: for each output of each product eight multiply-adds of a group sum
+    into its 64-bit word (integer pipe), a beta = 52 Shoup product (four)
+    and the final reduction (two) on the FP64 pipe, and one more Shoup
+    product a word for the grid: 16 of each a word."""
     if name == "four_step_phase":
         K, J = x.shape[-2:]
-        n, depth, products, weights = K * J, K, 1, 5 * K * K
+        n, depth, weights = K * J, K, 5 * K * K
     else:
-        n, depth, products = tb.n, tb.R + tb.C, 2
-        weights = 5 * (tb.R ** 2 + tb.C ** 2)
+        n, depth = tb.n, tb.R + tb.C
+        weights = tb.A_wg.shape[1] + tb.B0_wg.shape[1]
     rows = x.numel() // n
     nbytes = 16 * x.numel() + tb.p.shape[0] * (weights + 16 * n + 32)
-    imads = rows * n * (products * (BARRETT + SHOUP) + SHOUP)
     int8_ops = 2 * 25 * rows * n * depth
-    return nbytes, imads, int8_ops
+    if name == "four_step_phase":
+        return nbytes, rows * n * (BARRETT + 2 * SHOUP), int8_ops, 0
+    return (nbytes, rows * n * 2 * FOUR_STEP_FOLD_IMADS, int8_ops,
+            rows * n * (3 * SHOUP40_FMAS + 2 * FOUR_STEP_REDUCE_FMAS))
 
 
 def phase_kernels(eng: TorchEngine, eng4: TorchEngine, rng):

@@ -93,7 +93,9 @@ __device__ __forceinline__ u64 mul_shoup40_lazy(u64 a, double w, double ws,
 // The same product for a sum of terms (floor_sk): a, w, ws and p as doubles,
 // a an integer below 2^39, and the term r = a*w - q*p returned as a double,
 // exactly (r < 2^52: t + l is an integer that a double holds).  A sum of
-// such terms stays exact while it is below 2^53.
+// such terms stays exact while it is below 2^53.  The scale of the Shoup
+// word is the caller's: with ws = floor(w * 2^52 / p) * 2^-52 and a < 2^50
+// (four_step.cu's fold), q = floor(a * ws) and r < p (1 + a / 2^52).
 __device__ __forceinline__ double shoup40_d(double a, double w, double ws,
                                            double p) {
     const double q = __dsub_rn(__fma_rd(a, ws, 0x1p52), 0x1p52);

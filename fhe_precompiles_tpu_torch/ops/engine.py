@@ -43,6 +43,7 @@ from ..sampling import (Blake2Xof, DOMAIN_ERROR, DOMAIN_TERNARY, sample_cbd,
                         sample_ternary)
 from .behz import Behz
 from .modmath import addmod, csub_reduce, mulmod, negmod, submod
+from . import four_step, ntt, tail
 from .four_step import FourStepNtt
 from .ntt import ButterflyNtt
 from .tail import TailConstants
@@ -52,6 +53,35 @@ from .wide import ExactScaleRound
 # the transforms of each ``ntt_backend``: classes with ``ntt`` / ``intt``
 # taking (moduli, n, device, n_inv_factors=...)
 NTT_BACKENDS = {"butterfly": ButterflyNtt, "four_step": FourStepNtt}
+
+
+def check_card_limits(g: BfvContext, ntt_backend: str) -> None:
+    """Refuses, with one ValueError that names the limit, a parameter set
+    that the kernels an engine on the card launches cannot take, where the
+    JAX package computes it: the tail kernels' limb capacities (``MAX_K``,
+    ``MAX_BSK``, ``MAX_KEY`` of ops/tail.py), the butterfly NTT's largest n
+    (``MAX_N`` of ops/ntt.py), the four-step NTT's sides R = n / C with
+    C = 64 (``kernel_fit`` of ops/four_step.py).  There is no fallback to
+    the CPU: the caller may name device="cpu"."""
+    nbsk = len(g.Bsk)
+    if g.k > tail.MAX_K or nbsk > tail.MAX_BSK or g.k_key > tail.MAX_KEY:
+        raise ValueError(
+            f"TorchEngine on the card: the tail kernels take k <= "
+            f"{tail.MAX_K} (MAX_K), |Bsk| <= {tail.MAX_BSK} (MAX_BSK) and "
+            f"k_key <= {tail.MAX_KEY} (MAX_KEY); this parameter set has "
+            f"k = {g.k}, |Bsk| = {nbsk}, k_key = {g.k_key}")
+    if ntt_backend == "butterfly" and not 8 <= g.n <= ntt.MAX_N:
+        raise ValueError(f"TorchEngine on the card: the butterfly NTT kernel "
+                         f"takes 8 <= n <= {ntt.MAX_N} (MAX_N), got "
+                         f"n = {g.n}")
+    if ntt_backend == "four_step":
+        C = four_step.DEFAULT_C
+        R = g.n // C
+        if R * C != g.n or four_step.kernel_fit(R, C)[0] == 0:
+            raise ValueError(
+                f"TorchEngine on the card: the four-step NTT kernel takes "
+                f"n = R * {C} with R in {four_step.KERNEL_SIDES} "
+                f"(kernel_fit), got n = {g.n}")
 
 
 def pad_rows(x: torch.Tensor, target: int) -> torch.Tensor:
@@ -80,6 +110,8 @@ class TorchEngine:
                 "available; pass device='cpu' to run the plain versions")
         self.params = params
         g = golden if golden is not None else BfvContext(params)
+        if self.device.type == "cuda":
+            check_card_limits(g, ntt_backend)
         self.golden = g
         self.n, self.k, self.k_key = g.n, g.k, g.k_key
         self.nb = g.k + len(g.Bsk)

@@ -38,6 +38,7 @@ them.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -51,11 +52,16 @@ from ..bfv.modmath import get_ntt_tables, invmod
 from ..bfv.modmath import mulmod as np_mulmod
 from ..bfv.modmath import submod as np_submod
 from . import build
-from .modmath import barrett_mu, mulmod, shoup_precompute
+from .modmath import barrett_mu, mulmod, shoup40_precompute, shoup_precompute
 from .ntt import _group_stride, _check_input
 
 NDIG = 5                       # base-256 digits of a residue below 2^40
 KERNEL_SIDES = (16, 32, 64, 128)   # R and C the kernels take
+DEFAULT_C = 64                 # the row length C of FourStepNtt's split
+# csrc/four_step.cu's shared-memory budget for kernel 8 (FS_MAX_SMEM,
+# FS_BARRIER_BYTES, FS_MAX_ROWS); ``kernel_fit`` mirrors ``four_step_fit``
+# and the wrapper holds the two together at first launch
+MAX_SMEM, BARRIER_BYTES, MAX_ROWS = 232448, 16, 4
 PHASE_MODES = ("none", "pre", "post")
 
 KERNEL_NAMES = ("four_step_ntt", "four_step_intt", "four_step_phase")
@@ -162,6 +168,61 @@ def _digits(m: np.ndarray) -> np.ndarray:
                       ).astype(np.uint8) for d in range(NDIG)])
 
 
+def wgmma_offset(row, k, K: int):
+    """Byte offset of element (row, k) of a K-major operand of depth K in
+    kernel 8's shared memory, wgmma's canonical layout without swizzle: core
+    matrices of 8 rows x 16 bytes, the two 16-byte halves of a 32-deep step
+    128 bytes apart, groups of 8 rows 8 * KP bytes apart, KP = max(K, 32).
+    Works elementwise on arrays."""
+    kp = max(K, 32)
+    return (row // 8) * 8 * kp + (k // 16) * 128 + (row % 8) * 16 + k % 16
+
+
+def wgmma_weight_layout(K: int) -> np.ndarray:
+    """For each byte of one limb's packed weights (NDIG planes of a K x K
+    matrix W[d][i][k], rows padded to a multiple of 64, depth to at least
+    32, as ``wgmma_offset`` places them), the flat index into the planes it
+    holds, or -1 where it holds zero (padding)."""
+    mp, kp = -(-K // 64) * 64, max(K, 32)
+    d, i, k = np.meshgrid(np.arange(NDIG), np.arange(mp), np.arange(kp),
+                          indexing="ij")
+    out = np.full(NDIG * mp * kp, -1, dtype=np.int64)
+    at = d * mp * kp + wgmma_offset(i, k, K)
+    inside = (i < K) & (k < K)
+    out[at[inside]] = ((d * K + i) * K + k)[inside]
+    return out
+
+
+def pack_wgmma(planes: np.ndarray) -> np.ndarray:
+    """(L, NDIG, K, K) uint8 planes -> (L, bytes) in
+    ``wgmma_weight_layout``, contiguous."""
+    L, _, K, _ = planes.shape
+    idx = wgmma_weight_layout(K)
+    flat = planes.reshape(L, -1)
+    return np.ascontiguousarray(
+        np.where(idx >= 0, flat[:, np.maximum(idx, 0)], 0), dtype=np.uint8)
+
+
+def kernel_fit(R: int, C: int):
+    """(rows a batch, staged, shared-memory bytes) of kernel 8 at sides R, C,
+    as ``four_step_fit`` in csrc/four_step.cu: both weight matrices
+    (``len(wgmma_weight_layout(K))`` bytes each) and, per row, the two
+    operands' digit planes (N >= 32 columns of depth max(K, 32)) and an
+    8n-byte staging buffer; else one row unstaged; (0, 0, 0) where not even
+    that fits (R = C = 128) or a side is not one the kernel takes."""
+    if R not in KERNEL_SIDES or C not in KERNEL_SIDES:
+        return 0, 0, 0
+    fixed = BARRIER_BYTES + sum(NDIG * (-(-K // 64) * 64) * max(K, 32)
+                                for K in (R, C))
+    slot = NDIG * (max(C, 32) * max(R, 32) + max(R, 32) * max(C, 32))
+    rows = min(MAX_ROWS, (MAX_SMEM - fixed) // (slot + 8 * R * C))
+    if rows >= 1:
+        return rows, 1, fixed + rows * (slot + 8 * R * C)
+    if fixed + slot <= MAX_SMEM:
+        return 1, 0, fixed + slot
+    return 0, 0, 0
+
+
 @dataclasses.dataclass(frozen=True)
 class MxuNttTables:
     """Four-step tables for a stack of L moduli, tensors on one device.
@@ -195,6 +256,16 @@ class MxuNttTables:
     TT_shoup: torch.Tensor
     TiT: torch.Tensor            # (L, C, R) = Ti transposed
     TiT_shoup: torch.Tensor
+    # kernel 8's: the weights in ``wgmma_weight_layout``, (L, bytes) uint8;
+    # the grids' beta = 40 Shoup words floor(w * 2^40 / p); `fold_scalars`
+    # (L, 4): p, c32 = 2^32 mod p, floor(c32 * 2^52 / p), floor(2^52 / p)
+    A_wg: torch.Tensor
+    B0_wg: torch.Tensor
+    Ai_wg: torch.Tensor
+    B0i_wg: torch.Tensor
+    T_shoup40: torch.Tensor      # (L, R, C)
+    TiT_shoup40: torch.Tensor    # (L, C, R)
+    fold_scalars: torch.Tensor
 
 
 def _dev(arr, device) -> torch.Tensor:
@@ -202,7 +273,8 @@ def _dev(arr, device) -> torch.Tensor:
         np.ascontiguousarray(arr, dtype=np.uint64).view(np.int64)).to(device)
 
 
-def build_mxu_tables(moduli: Sequence[int], n: int, device, C: int = 64,
+def build_mxu_tables(moduli: Sequence[int], n: int, device,
+                     C: int = DEFAULT_C,
                      n_inv_factors: Optional[Sequence[int]] = None
                      ) -> MxuNttTables:
     """Tables on `device`, which the caller names (there is no default).
@@ -226,9 +298,14 @@ def build_mxu_tables(moduli: Sequence[int], n: int, device, C: int = 64,
     def stack(i):
         return np.stack([m[i] for m in mats])
 
+    def digit_planes(mats_):
+        return np.stack([_digits(m) for m in mats_])
+
     def digits(mats_):
-        return torch.from_numpy(np.stack([_digits(m) for m in mats_])
-                                ).to(device)
+        return torch.from_numpy(digit_planes(mats_)).to(device)
+
+    def packed(mats_):
+        return torch.from_numpy(pack_wgmma(digit_planes(mats_))).to(device)
 
     T, Ti = stack(2), stack(5)
     T_s, Ti_s = shoup_precompute(T, grid), shoup_precompute(Ti, grid)
@@ -238,8 +315,12 @@ def build_mxu_tables(moduli: Sequence[int], n: int, device, C: int = 64,
     mu = barrett_mu(p_col)
     scalars = np.concatenate([p_col, mu, pows[:, NDIG, 0], pows_s[:, NDIG, 0]],
                              axis=1)
+    fold_scalars = np.array([[p, (1 << 32) % p, (((1 << 32) % p) << 52) // p,
+                              (1 << 52) // p] for p in moduli],
+                            dtype=np.uint64)
     B0_dig = digits([m[1] for m in mats])
     B0i_dig = digits([m[4] for m in mats])
+    TiT = Ti.transpose(0, 2, 1)
     return MxuNttTables(
         n=n, R=R, C=C, p=_dev(p_col, device), mu=_dev(mu, device),
         A_dig=digits([m[0] for m in mats]),
@@ -252,8 +333,13 @@ def build_mxu_tables(moduli: Sequence[int], n: int, device, C: int = 64,
         B0_dig=B0_dig, B0i_dig=B0i_dig, scalars=_dev(scalars, device),
         TT=_dev(T.transpose(0, 2, 1), device),
         TT_shoup=_dev(T_s.transpose(0, 2, 1), device),
-        TiT=_dev(Ti.transpose(0, 2, 1), device),
+        TiT=_dev(TiT, device),
         TiT_shoup=_dev(Ti_s.transpose(0, 2, 1), device),
+        A_wg=packed([m[0] for m in mats]), B0_wg=packed([m[1] for m in mats]),
+        Ai_wg=packed(Ai), B0i_wg=packed([m[4] for m in mats]),
+        T_shoup40=_dev(shoup40_precompute(T, grid), device),
+        TiT_shoup40=_dev(shoup40_precompute(TiT, grid), device),
+        fold_scalars=_dev(fold_scalars, device),
     )
 
 
@@ -345,27 +431,60 @@ def check_sides(name: str, *sides: int) -> None:
                              f"{KERNEL_SIDES}, got {side}")
 
 
+def check_transform_fits(name: str, R: int, C: int) -> None:
+    """Kernel 8 takes sides R, C whose weights and one row fit one block's
+    shared memory (``kernel_fit``): not R = C = 128."""
+    check_sides(name, R, C)
+    if kernel_fit(R, C)[0] == 0:
+        raise ValueError(f"{name}: the weights and one row of R = {R}, "
+                         f"C = {C} do not fit one block's shared memory "
+                         f"({MAX_SMEM} bytes)")
+
+
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+_fit_checked = False
+
+
+def _check_library_fit(lib) -> None:
+    """Once: the library's batch geometry is ``kernel_fit``'s."""
+    global _fit_checked
+    if _fit_checked:
+        return
+    for R in KERNEL_SIDES:
+        for C in KERNEL_SIDES:
+            got = (ctypes.c_int * 3)()
+            lib.fhe_four_step_fit(R, C, got)
+            if tuple(got) != kernel_fit(R, C):
+                raise RuntimeError(
+                    f"four_step: the library's batch at R = {R}, C = {C} is "
+                    f"{tuple(got)}, kernel_fit gives {kernel_fit(R, C)}")
+    _fit_checked = True
 
 
 def _launch_transform(name: str, x: torch.Tensor,
                       tb: MxuNttTables) -> torch.Tensor:
     L, n = tb.p.shape[0], tb.n
     _check_input(name, x, tb.p.device, (L, n))
-    check_sides(name, tb.R, tb.C)
+    check_transform_fits(name, tb.R, tb.C)
     inverse = name == "four_step_intt"
     stride = _group_stride(x, name, L, n)
     lib = build.load_library()
+    _check_library_fit(lib)
     out = torch.empty(x.shape, dtype=torch.int64, device=x.device)
     rows = math.prod(x.shape[:-1])
-    w_row, w_col = (tb.Ai_dig, tb.B0i_dig) if inverse else (tb.A_dig,
-                                                             tb.B0_dig)
-    grid, grid_s = (tb.Ti, tb.Ti_shoup) if inverse else (tb.T, tb.T_shoup)
+    # the r- and c-product's weights, and the grid in the first product's
+    # output order
+    if inverse:
+        w_r, w_c, grid, grid_s = tb.Ai_wg, tb.B0i_wg, tb.TiT, tb.TiT_shoup40
+    else:
+        w_r, w_c, grid, grid_s = tb.A_wg, tb.B0_wg, tb.T, tb.T_shoup40
     with torch.cuda.device(x.device):      # the launch goes to x's card
         rc = lib.fhe_four_step_ntt(
             x.data_ptr(), out.data_ptr(), rows, L, tb.R, tb.C, stride,
-            tb.scalars.data_ptr(), w_row.data_ptr(), w_col.data_ptr(),
+            tb.fold_scalars.data_ptr(), w_r.data_ptr(), w_c.data_ptr(),
             grid.data_ptr(), grid_s.data_ptr(), int(inverse), _stream(x))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
@@ -469,7 +588,8 @@ class FourStepNtt:
     8), ``fused=False`` in two launches of kernel 9 with torch transposes
     between them."""
 
-    def __init__(self, moduli: Sequence[int], n: int, device, C: int = 64,
+    def __init__(self, moduli: Sequence[int], n: int, device,
+                 C: int = DEFAULT_C,
                  fused: bool = True,
                  n_inv_factors: Optional[Sequence[int]] = None):
         self.tables = build_mxu_tables(moduli, n, device, C, n_inv_factors)

@@ -43,6 +43,9 @@ from .modmath import addmod, mulmod, shoup40_precompute, submod
 
 KERNEL_NAMES = ("ntt", "intt")
 MAX_MODULUS = 1 << 37     # so that the kernels' lazy values stay below 2**39
+# the largest n whose row fits one block's shared memory beside the limb's
+# tables: csrc/ntt.cu fhe_ntt_max_n(), which the wrapper holds it to
+MAX_N = 8192
 launch_counts = {name: 0 for name in KERNEL_NAMES}
 
 
@@ -206,10 +209,13 @@ def _launch(name: str, x: torch.Tensor, tb: NttTables) -> torch.Tensor:
     _check_input(name, x, tb.p.device, (L, n))
     stride = _group_stride(x, name, L, n)
     lib = build.load_library()
-    if n < 8 or n > lib.fhe_ntt_max_n():
-        raise ValueError(f"{name}: the kernel takes 8 <= n <= "
-                         f"{lib.fhe_ntt_max_n()} (a row and the limb's tables "
-                         f"must fit one block's shared memory), got n = {n}")
+    if lib.fhe_ntt_max_n() != MAX_N:
+        raise RuntimeError(f"{name}: the library takes n up to "
+                           f"{lib.fhe_ntt_max_n()}, MAX_N says {MAX_N}")
+    if n < 8 or n > MAX_N:
+        raise ValueError(f"{name}: the kernel takes 8 <= n <= {MAX_N} (a row "
+                         "and the limb's tables must fit one block's shared "
+                         f"memory), got n = {n}")
     out = torch.empty(x.shape, dtype=torch.int64, device=x.device)
     rows = math.prod(x.shape[:-1])
     with torch.cuda.device(x.device):      # the launch goes to x's card

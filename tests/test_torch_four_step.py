@@ -23,9 +23,10 @@ from fhe_precompiles_tpu_torch.bfv import (BfvContext, Ciphertext, PublicKey,
 from fhe_precompiles_tpu_torch.ops import four_step as fs
 from fhe_precompiles_tpu_torch.ops import ntt as tn
 from fhe_precompiles_tpu_torch.ops import tail
-from fhe_precompiles_tpu_torch.ops.engine import TorchEngine
+from fhe_precompiles_tpu_torch.ops.engine import TorchEngine, check_card_limits
 from fhe_precompiles_tpu_torch.ops.modmath import shoup_precompute
-from fhe_precompiles_tpu_torch.params import TESTNET_ONE
+from fhe_precompiles_tpu_torch.params import (BENCH_N8192, TESTNET_ONE,
+                                              Params, ntt_friendly_primes)
 
 # the suite runs several workers side by side: keep torch to one thread each
 torch.set_num_threads(1)
@@ -300,3 +301,202 @@ def test_kernel_sides_and_modes_are_checked():
         fs.phase(x, tb.A_dig, None, "pre", tb)
     with pytest.raises(ValueError, match="not R \\* C"):
         fs.build_mxu_tables(MODS, 256, "cpu", C=48)
+
+
+# ----------------------------------------------------------------------
+# kernel 8's own tables and arithmetic, replayed on integers
+# ----------------------------------------------------------------------
+def _weights_from_layout(packed: np.ndarray, K: int) -> np.ndarray:
+    """The (NDIG, K, K) planes a kernel reads from one limb's packed weights
+    through wgmma's K-major canonical layout without swizzle, each plane
+    padded to MP = 64 * ceil(K / 64) rows of depth KP = max(K, 32): element
+    (i, k) of digit d at d * MP * KP + (i // 8) * 8 * KP + (k // 16) * 128
+    + (i % 8) * 16 + k % 16; every other byte zero."""
+    mp, kp = -(-K // 64) * 64, max(K, 32)
+    assert packed.size == fs.NDIG * mp * kp
+    i, k = np.meshgrid(np.arange(K), np.arange(K), indexing="ij")
+    at = (i // 8) * 8 * kp + (k // 16) * 128 + (i % 8) * 16 + k % 16
+    planes = packed.reshape(fs.NDIG, mp * kp)
+    rest = planes.copy()
+    rest[:, at] = 0
+    assert not np.any(rest)
+    return planes[:, at]
+
+
+_N8192_PRIME = (int(BENCH_N8192.coeff_modulus[0]),)
+
+
+@pytest.mark.parametrize("case", ["testnet.one", "bench.n8192",
+                                  "non-square 512"])
+def test_wgmma_layout_reads_back_planes(case, one_all):
+    """The host's packing of every weight matrix into kernel 8's shared
+    memory layout (wgmma's canonical K-major layout), read back through
+    ``wgmma_weight_layout`` and through the layout's own formula, equals the
+    plain [d][i][k] planes: sides 64 (q u Bsk of testnet.one), 128 and 64
+    (bench.n8192), 32 and 16 (n = 512, C = 16)."""
+    tb = {"testnet.one": lambda: one_all[0],
+          "bench.n8192": lambda: fs.build_mxu_tables(_N8192_PRIME, 8192,
+                                                     "cpu"),
+          "non-square 512": lambda: fs.build_mxu_tables(MODS, 512, "cpu",
+                                                        C=16)}[case]()
+    for packed, planes in ((tb.A_wg, tb.A_dig), (tb.B0_wg, tb.B0_dig),
+                           (tb.Ai_wg, tb.Ai_dig), (tb.B0i_wg, tb.B0i_dig)):
+        K = planes.shape[-1]
+        idx = fs.wgmma_weight_layout(K)
+        assert packed.dtype == torch.uint8 and packed.shape[1] == idx.size
+        assert packed.is_contiguous()
+        held = np.sort(idx[idx >= 0])
+        assert np.array_equal(held, np.arange(fs.NDIG * K * K))
+        for li in range(planes.shape[0]):
+            f, want = packed[li].numpy(), planes[li].numpy()
+            back = np.zeros(fs.NDIG * K * K, dtype=np.uint8)
+            back[idx[idx >= 0]] = f[idx >= 0]
+            assert not np.any(f[idx < 0])
+            assert np.array_equal(back.reshape(want.shape), want)
+            assert np.array_equal(_weights_from_layout(f, K), want)
+
+
+def test_grid_shoup40_words_and_fold_scalars_equal_python_integers(one_all):
+    tb = one_all[0]
+    for li, p in enumerate(ALL):
+        for words, shoup in ((tb.T, tb.T_shoup40), (tb.TiT, tb.TiT_shoup40)):
+            w = _np(words[li]).reshape(-1)
+            want = np.array([(int(v) << 40) // p for v in w], dtype=np.uint64)
+            assert np.array_equal(_np(shoup[li]).reshape(-1), want)
+        c32 = (1 << 32) % p
+        assert [int(v) for v in _np(tb.fold_scalars[li])] == [
+            p, c32, (c32 << 52) // p, (1 << 52) // p]
+    assert torch.equal(tb.TiT, tb.Ti.transpose(-1, -2))
+
+
+def _group_sums(w: np.ndarray, x: np.ndarray):
+    """S_s = sum over da + db = s of W_da @ X_db: what each group of wgmma
+    leaves in its s32 accumulators (w: (NDIG, K, K) digit planes, x: (K, N)
+    words)."""
+    xd = [((x >> (8 * d)) & 0xFF).astype(np.int64) for d in range(fs.NDIG)]
+    sums = [np.zeros((w.shape[1], x.shape[1]), dtype=np.int64)
+            for _ in range(2 * fs.NDIG - 1)]
+    for da in range(fs.NDIG):
+        for db in range(fs.NDIG):
+            sums[da + db] += w[da].astype(np.int64) @ xd[db]
+    return sums
+
+
+def _shoup(a, w, ws, p, beta):
+    """modmath.cuh shoup40_d on integers with the Shoup word
+    ws = floor(w * 2^beta / p) scaled by 2^-beta: q = floor(a * ws / 2^beta)
+    (the fma rounded down onto 2^52 needs that quotient below 2^52),
+    a*w - q*p."""
+    q = a * ws >> beta
+    assert np.all(q < 1 << 52)
+    return a * w - q * p
+
+
+def _kernel8_product(w, x, K, p, c32, c32s, pinv):
+    """One product of kernel 8, output by output as its epilogue forms it:
+    a lazy value below 1.5p, every bound the comments state asserted."""
+    sums = _group_sums(w, x)
+    assert max(int(s.max()) for s in sums) < 5 * 255 ** 2 * K < 1 << 26
+    lo = sum(sums[s].astype(object) << (8 * s) for s in range(4))
+    hi = sum(sums[s].astype(object) << (8 * (s - 4)) for s in range(4, 9))
+    assert max(lo.flat) < 1 << 51 and max(hi.flat) < 1 << 50
+    r1 = _shoup(hi, c32, c32s, p, 52)
+    assert min(r1.flat) >= 0 and max(r1.flat) < 2 * p
+    x52 = lo + r1
+    assert max(x52.flat) < 1 << 51
+    r2 = _shoup(x52, 1, pinv, p, 52)
+    assert min(r2.flat) >= 0 and max(r2.flat) < 3 * p // 2
+    return r2
+
+
+def _csub(a, p):
+    return np.where(a >= p, a - p, a)
+
+
+def _emulate_kernel8(x: np.ndarray, tb, inverse: bool) -> np.ndarray:
+    """Kernel 8 on one (L, n) stack of rows from its own tables: the
+    weights as read through the layout, fold_scalars, the grid and its
+    beta = 40 Shoup words in the first product's output order."""
+    R, C = tb.R, tb.C
+    out = np.empty_like(x)
+    for li in range(x.shape[0]):
+        p, c32, c32s, pinv = (int(v) for v in _np(tb.fold_scalars[li]))
+        wr = _weights_from_layout(
+            (tb.Ai_wg if inverse else tb.A_wg)[li].numpy(), R)
+        wc = _weights_from_layout(
+            (tb.B0i_wg if inverse else tb.B0_wg)[li].numpy(), C)
+        grid = _np((tb.TiT if inverse else tb.T)[li]).astype(object)
+        grid_s = _np((tb.TiT_shoup40 if inverse else tb.T_shoup40)[li]
+                     ).astype(object)
+        m = x[li].reshape(R, C)
+        w1, k1, op1 = (wc, C, m.T) if inverse else (wr, R, m)
+        w2, k2 = (wr, R) if inverse else (wc, C)
+        y = _kernel8_product(w1, op1, k1, p, c32, c32s, pinv)
+        t = _shoup(y, grid, grid_s, p, 40)
+        assert min(t.flat) >= 0 and np.all(t < p + (3 * p // 2) * p // 2 ** 40
+                                           + 1)
+        y = _csub(t, p).astype(np.uint64)
+        z = _csub(_kernel8_product(w2, y.T, k2, p, c32, c32s, pinv), p)
+        assert np.all(z < p)
+        out[li] = (z if inverse else z.T).astype(np.uint64).reshape(-1)
+    return out
+
+
+@pytest.mark.parametrize("case", ["testnet.one", "n1024 R=16"])
+def test_kernel8_steps_emulated_match_plain(case, one_all):
+    """Kernel 8's arithmetic replayed on integers from the kernel's own
+    tables, asserting every bound its comments state (the group sums, the
+    lo/hi fold, each Shoup product's quotient and result), against
+    ``ntt_plain`` / ``intt_plain`` (the latter with t folded in).  Rows:
+    random, every residue p - 1, all zeros; the group-sum bound also for
+    all-255 digits at K = 128."""
+    if case == "testnet.one":
+        mods, tb, tbi = ALL, one_all[0], one_all[0]
+    else:
+        mods = ALL[:2]
+        tb = fs.build_mxu_tables(mods, 1024, "cpu")
+        tbi = fs.build_mxu_tables(mods, 1024, "cpu",
+                                  n_inv_factors=[TESTNET_ONE.t] * 2)
+    x = _rand(np.random.default_rng(37), (3,), mods, tb.n)
+    x[1] = np.array(mods, dtype=np.uint64)[:, None] - np.uint64(1)
+    x[2] = 0
+    for row in x:
+        assert np.array_equal(_emulate_kernel8(row, tb, False),
+                              _np(fs.ntt_plain(_t(row), tb)))
+        assert np.array_equal(_emulate_kernel8(row, tbi, True),
+                              _np(fs.intt_plain(_t(row), tbi)))
+    ones = np.full((fs.NDIG, 128, 128), 255, dtype=np.uint8)
+    worst = _group_sums(ones, np.full((128, 8), (1 << 40) - 1,
+                                      dtype=np.uint64))
+    assert max(int(s.max()) for s in worst) == 5 * 255 ** 2 * 128 < 1 << 26
+
+
+def _wide(n: int, count: int) -> BfvContext:
+    return BfvContext(Params(poly_modulus_degree=n,
+                             coeff_modulus=ntt_friendly_primes(n, count),
+                             plain_modulus=4096))
+
+
+def test_card_limits_refuse_what_the_kernels_cannot_take():
+    """``TorchEngine(..., device="cuda")`` runs ``check_card_limits`` before
+    it builds anything: a parameter set past a kernel's limit is refused at
+    construction with the limit's name, where the JAX package computes it.
+    Every preset fits."""
+    for params in (TESTNET_ONE, BENCH_N8192):
+        for backend in ("butterfly", "four_step"):
+            check_card_limits(BfvContext(params), backend)
+    wide_k = _wide(1024, 5)                       # k = 4
+    for backend in ("butterfly", "four_step"):
+        with pytest.raises(ValueError, match="MAX_K"):
+            check_card_limits(wide_k, backend)
+    with pytest.raises(ValueError, match="MAX_N"):
+        check_card_limits(_wide(16384, 2), "butterfly")
+    small = _wide(512, 2)                         # R = 512 / 64 = 8
+    check_card_limits(small, "butterfly")
+    with pytest.raises(ValueError, match="four-step NTT kernel"):
+        check_card_limits(small, "four_step")
+    assert fs.kernel_fit(128, 128) == (0, 0, 0)
+    assert fs.kernel_fit(64, 64) == (2, 1, 188432)
+    assert fs.kernel_fit(128, 64) == (1, 0, 184336)
+    with pytest.raises(ValueError, match="do not fit"):
+        fs.check_transform_fits("four_step_ntt", 128, 128)
