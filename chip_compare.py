@@ -1,9 +1,12 @@
 """A kernel of this checkout against the same kernel of an earlier checkout
-of the port, on one NVIDIA GPU, in turns: ``floor_sk`` (the default) or
-kernel 8, the fused four-step NTT (``--kernel four_step``).
+of the port, on one NVIDIA GPU, in turns: ``floor_sk`` (the default),
+kernel 8, the fused four-step NTT (``--kernel four_step``), or kernel 9, the
+four-step product of the two-launch transform (``--kernel
+four_step_phase``).
 
     git archive <commit> fhe_precompiles_tpu_torch | tar -x -C <dir>
-    python3 chip_compare.py --parent <dir> [--kernel floor_sk|four_step]
+    python3 chip_compare.py --parent <dir>
+                            [--kernel floor_sk|four_step|four_step_phase]
                             [--out <dir for listings>]
 
 `<dir>` holds the earlier ``fhe_precompiles_tpu_torch`` (a git-ignored
@@ -41,6 +44,19 @@ four_step:
              ntt_backend="four_step")`` at B = 128 (median of 12) and its
              staged NTT rows and total, with each kernel in the engine, in
              the same order.
+
+four_step_phase:
+  ablations  kernel 9 built again with one part taken out, cold in mode
+             "pre" and "none" at (128, 2, 5, 64, 64) (outputs unused): its
+             tensor-core products, the fold of its group sums, both, and
+             the grid's staging in shared memory (the words read from
+             device memory instead);
+  turns      four_step_phase cold at (128, 2, 5, 64, 64) in each mode, old,
+             new, new, old, each launch first held word for word against
+             the plain version; then ``FourStepNtt(fused=False)`` there and
+             back on the prepared operand (median of 12) and
+             ``chip_smoke.staged_two_launch``'s rows (median of 5), in the
+             same order.
 
 Then the card's name and power limit.  Needs a CUDA card and ``nvcc``.
 """
@@ -346,27 +362,47 @@ ABLATIONS = {
 }
 
 
-def ablation_library(out_dir: Path, name: str, subs: dict):
-    """csrc/four_step.cu with `subs` applied, built into its own library."""
-    d = out_dir / name
-    d.mkdir(parents=True, exist_ok=True)
-    text = (build.CSRC / "four_step.cu").read_text()
-    for old, new in subs.items():
-        if old not in text:
-            raise AssertionError(f"ablation {name}: text not found: {old!r}")
-        text = text.replace(old, new)
-    (d / "four_step.cu").write_text(text)
-    for h in build.CSRC.glob("*.cuh"):
-        shutil.copy(h, d / h.name)
-    so = d / "lib.so"
-    subprocess.run([build._find_nvcc(), *build.NVCC_FLAGS, "-I", str(d),
-                    "-o", str(so), str(d / "four_step.cu")], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(str(so))
+# kernel 9's grid staging taken out: the grid words read from device
+# memory
+GRID_STAGED_TEXT = """f.rows, f.grid_staged,
+        f.in_staged, groups"""
+PHASE_ABLATIONS = {**ABLATIONS, "grid_from_device_memory": {
+    GRID_STAGED_TEXT: "f.rows, 0,\n        f.in_staged, groups"}}
+
+
+def ablation_libraries(out_dir: Path, ablations: dict) -> dict:
+    """csrc/four_step.cu with each ablation's substitutions applied, each
+    built into its own library, the nvcc runs side by side."""
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.fhe_four_step_ntt.argtypes = [vp, vp, ll, i, i, i, ll, vp, vp, vp,
-                                      vp, vp, i, vp]
-    return lib
+    procs = {}
+    for name, subs in ablations.items():
+        d = out_dir / name
+        d.mkdir(parents=True, exist_ok=True)
+        text = (build.CSRC / "four_step.cu").read_text()
+        for old, new in subs.items():
+            if old not in text:
+                raise AssertionError(f"ablation {name}: text not found: "
+                                     f"{old!r}")
+            text = text.replace(old, new)
+        (d / "four_step.cu").write_text(text)
+        for h in build.CSRC.glob("*.cuh"):
+            shutil.copy(h, d / h.name)
+        procs[name] = (d / "lib.so", subprocess.Popen(
+            [build._find_nvcc(), *build.NVCC_FLAGS, "-I", str(d), "-o",
+             str(d / "lib.so"), str(d / "four_step.cu")],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"ablation {name}: nvcc failed\n"
+                               + err.decode())
+        lib = libs[name] = ctypes.CDLL(str(so))
+        lib.fhe_four_step_ntt.argtypes = [vp, vp, ll, i, i, i, ll, vp, vp,
+                                          vp, vp, vp, i, vp]
+        lib.fhe_four_step_phase.argtypes = [vp, vp, ll, i, i, i, ll, vp, vp,
+                                            vp, i, vp]
+    return libs
 
 
 def kernel8_of(lib, d: str):
@@ -431,8 +467,7 @@ def compare_four_step(old, args, card: str) -> None:
                 cs.cold_ms(kern[who](d), (x,), tb))
 
     # the whole kernel and each ablation, in turns, there and back
-    libs = {name: ablation_library(args.out / "ablations", name, subs)
-            for name, subs in ABLATIONS.items()}
+    libs = ablation_libraries(args.out / "ablations", ABLATIONS)
     order = ["whole", *ABLATIONS]
     parts = {name: {} for name in order}
     for name in order + order[::-1]:
@@ -466,10 +501,108 @@ def compare_four_step(old, args, card: str) -> None:
           "mul_relin": path})
 
 
+def phase_of(lib):
+    """A wrapper in the shape of ``fsm.phase`` around the kernel 9 entry
+    point of `lib` (contiguous input)."""
+    def kern(m, weights, grid, mode, tb):
+        out = torch.empty_like(m)
+        L, (K, J) = tb.p.shape[0], m.shape[-2:]
+        rc = lib.fhe_four_step_phase(
+            m.data_ptr(), out.data_ptr(), m.numel() // (K * J), L, K, J,
+            L * K * J, tb.fold_scalars.data_ptr(), weights.data_ptr(),
+            None if grid is None else grid.data_ptr(),
+            fsm.PHASE_MODES.index(mode),
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"ablation launch: cudaError {rc}")
+        return out
+    return kern
+
+
+def compare_phase(old, args, card: str) -> None:
+    """Kernel 9 of the parent checkout (its ``phase``, its own tables and
+    argument forms) against this one."""
+    old_fs = old["ops.four_step"]
+    eng4 = TorchEngine(TESTNET_ONE, ntt_backend="four_step")
+    g = eng4.golden
+    all_mods = g.q_mods + g.Bsk
+    two = fsm.FourStepNtt(all_mods, g.n, "cuda", fused=False)
+    tb, otb = two.tables, old_fs.build_mxu_tables(all_mods, g.n, "cuda")
+    rng = np.random.default_rng(cs.SEED)
+    x = cs.ntt_rows(rng, (cs.BATCH, 2), all_mods, g.n)
+    m = x.view(x.shape[:-1] + (tb.R, tb.C))
+    # each mode's grid: (this checkout's, the parent's)
+    grid = (tb.T, (otb.T, otb.T_shoup))
+    grids = {"none": (None, None), "pre": grid, "post": grid}
+
+    def kern(who, mode):
+        new_g, old_g = grids[mode]
+        if who == "new":
+            return lambda v, t: fsm.phase(v, t.A_wg, new_g, mode, t)
+        return lambda v, t: old_fs.phase(v, otb.A_dig, old_g, mode, otb)
+
+    for mode in fsm.PHASE_MODES:
+        want = fsm.phase_plain(m, tb.A_wg, grids[mode][0], mode, tb)
+        for who in ("old", "new"):
+            if not torch.equal(kern(who, mode)(m, tb), want):
+                raise AssertionError(f"the {who} kernel differs from the "
+                                     f"plain version in mode {mode}")
+    turns = {}
+    for who in ("old", "new", "new", "old"):
+        for mode in fsm.PHASE_MODES:
+            turns.setdefault(f"{who} {mode} (128, 2, 5, 64, 64)", []).append(
+                cs.cold_ms(kern(who, mode), (m,), tb))
+
+    # the whole kernel and each ablation, in turns, there and back
+    libs = ablation_libraries(args.out / "ablations", PHASE_ABLATIONS)
+    order = ["whole", *PHASE_ABLATIONS]
+    parts = {name: {} for name in order}
+    for name in order + order[::-1]:
+        ph = fsm.phase if name == "whole" else phase_of(libs[name])
+        for mode in ("pre", "none"):
+            parts[name].setdefault(mode, []).append(cs.cold_ms(
+                lambda v, t, ph=ph, mode=mode: ph(v, t.A_wg,
+                                                  grids[mode][0], mode, t),
+                (m,), tb))
+    emit({"phase": "ablations", "card": card, "cold_ms": parts})
+
+    # the two-launch transform with each kernel, there and back, and its
+    # staged rows
+    ext = tail.to_bsk_ext(mul_relin_inputs(eng4)[0], eng4.consts)
+    want = eng4._ntt_all(ext)
+    old_two = old_fs.FourStepNtt(all_mods, g.n, "cuda", fused=False)
+    transform = {"new": two, "old": old_two}
+    staged = {"new": None, "old": (
+        lambda v: old_fs.phase(v, otb.A_dig, None, "none", otb),
+        lambda v: old_fs.phase(v, otb.B0_dig, (otb.TT, otb.TT_shoup), "pre",
+                               otb))}
+    path = {}
+    for who in ("old", "new", "new", "old"):
+        t = transform[who]
+        y = t.ntt(ext)
+        if not (torch.equal(y, want) and torch.equal(t.intt(y), ext)):
+            raise AssertionError(f"the two-launch transform with the {who} "
+                                 "kernel differs")
+        r = path.setdefault(who, {"there_and_back_ms": [], "staged": []})
+        r["there_and_back_ms"] += cs.call_times(lambda: t.intt(t.ntt(ext)),
+                                                6)
+        runs = [cs.staged_two_launch(ext, tb, staged[who])[1]
+                for _ in range(5)]
+        r["staged"].append({label: statistics.median(run[label]
+                                                     for run in runs)
+                            for label in runs[0]})
+    for r in path.values():
+        r["there_and_back_ms_median"] = statistics.median(
+            r["there_and_back_ms"])
+    emit({"phase": "turns", "card": card, "cold_ms": turns,
+          "two_launch": path})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True, type=Path)
-    ap.add_argument("--kernel", choices=("floor_sk", "four_step"),
+    ap.add_argument("--kernel",
+                    choices=("floor_sk", "four_step", "four_step_phase"),
                     default="floor_sk")
     ap.add_argument("--out", type=Path,
                     default=Path("fhe_precompiles_tpu_torch/_build/compare"))
@@ -485,6 +618,8 @@ def main() -> int:
     build_both(old, args, card)
     if args.kernel == "four_step":
         compare_four_step(old, args, card)
+    elif args.kernel == "four_step_phase":
+        compare_phase(old, args, card)
     else:
         compare_floor_sk(old, args, card)
     print(card, flush=True)

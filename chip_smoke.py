@@ -417,14 +417,35 @@ def four_step_cases(eng4: TorchEngine, eng: TorchEngine, rng):
     return cases
 
 
+def phase_mode_checks(label: str, m: torch.Tensor, weights: torch.Tensor,
+                      grid, tb: fsm.MxuNttTables, check: dict) -> int:
+    """Kernel 9 alone against its plain version in each of its three
+    modes on the matrices `m` (..., L, K, J) with the packed `weights` and
+    the `grid`'s words: the mismatches go into `check`, the largest
+    difference is returned."""
+    max_err = 0
+    for mode in fsm.PHASE_MODES:
+        g = None if mode == "none" else grid
+        got = fsm.phase(m, weights, g, mode, tb)
+        mism, err = mismatch(got, fsm.phase_plain(m, weights, g, mode, tb))
+        check["mismatches"] += mism
+        check["cases"].append(
+            {"case": f"phase {mode}, {label}", "shape": list(m.shape),
+             "contiguous": m.is_contiguous(), "mismatches": mism})
+        max_err = max(max_err, err)
+    return max_err
+
+
 def four_step_kernel_checks(eng4: TorchEngine, eng: TorchEngine, rng,
                             rows: dict, checks: dict) -> None:
     """Kernel 8 (``four_step_ntt`` / ``four_step_intt``, one launch) and
     kernel 9 (``four_step_phase``, the two-launch transform) at every shape
     of ``four_step_cases``, each against the plain version and against the
-    butterfly kernels on the same input, and there and back again; then
-    kernel 9 alone in its three modes at the main path's shape.  Fills the
-    three kernels' rows and checks."""
+    butterfly kernels on the same input, and there and back again; kernel 9
+    alone in its three modes at each of those shapes, on the input's R x C
+    matrices (A, T) and on their transposes (B0, T transposed), and at
+    K = J = 128 (bench.n8192's A, a random grid).  Fills the three kernels'
+    rows and checks."""
     fused = {"ntt": fsm.ntt, "intt": fsm.intt}
     two = {"ntt": fsm.ntt_two_launch, "intt": fsm.intt_two_launch}
     plain = {"ntt": fsm.ntt_plain, "intt": fsm.intt_plain}
@@ -433,9 +454,20 @@ def four_step_kernel_checks(eng4: TorchEngine, eng: TorchEngine, rng,
     for name in fsm.KERNEL_NAMES:
         checks[name] = {"name": name, "mismatches": 0, "cases": []}
     max_err = {name: 0 for name in fsm.KERNEL_NAMES}
-    main_input = None
+    main_input = tb128 = None
     for label, d, tb, btb, there_and_back, x in four_step_cases(eng4, eng,
                                                                 rng):
+        m = x.view(x.shape[:-1] + (tb.R, tb.C))
+        for side, v, w, g in (
+                ("R x C", m, tb.A_wg, tb.T),
+                ("C x R", m.transpose(-1, -2).contiguous(), tb.B0_wg,
+                 tb.TT)):
+            max_err["four_step_phase"] = max(
+                max_err["four_step_phase"],
+                phase_mode_checks(f"{side}, {label}", v, w, g, tb,
+                                  checks["four_step_phase"]))
+        if tb.R == 128:
+            tb128 = tb
         want = plain[d](x, tb)
         if count_diff(want, bfly[d](x, btb)):
             raise AssertionError(f"{label}: the plain four-step {d} differs "
@@ -468,31 +500,33 @@ def four_step_kernel_checks(eng4: TorchEngine, eng: TorchEngine, rng,
             checks[k8]["cases"][-1]["ms"] = cold_ms(fused[d], (x,), tb)
         del want
 
-    # kernel 9 alone: the forward's operand, (B, 2, nb, R, C), every mode
+    # kernel 9 alone at K = J = 128, a side pair no transform gives it
+    mods = [int(p) for p in tb128.fold_scalars[:, 0].tolist()]
+    max_err["four_step_phase"] = max(
+        max_err["four_step_phase"],
+        phase_mode_checks("K = J = 128, bench.n8192's A, a random grid",
+                          dev(rand_rows(rng, (2,), mods, 128 * 128)
+                              ).view(2, len(mods), 128, 128),
+                          tb128.A_wg,
+                          dev(rand_rows(rng, (), mods, 128 * 128)
+                              ).view(len(mods), 128, 128),
+                          tb128, checks["four_step_phase"]))
+
+    # the row of the kernels line: kernel 9 in mode "pre" on the forward's
+    # operand, (B, 2, nb, R, C)
     x, tb = main_input
     m = x.view(x.shape[:-1] + (tb.R, tb.C))
-    grid = (tb.T, tb.T_shoup)
-    for mode in fsm.PHASE_MODES:
-        g = None if mode == "none" else grid
 
-        def kern(v, t, mode=mode, g=g):
-            return fsm.phase(v, t.A_dig, g, mode, t)
+    def kern(v, t):
+        return fsm.phase(v, t.A_wg, t.T, "pre", t)
 
-        def ref(v, t, mode=mode, g=g):
-            return fsm.phase_plain(v, t.A_dig, g, mode, t)
-        _, mism, err = compare(kern, ref, (m,), tb)
-        checks["four_step_phase"]["mismatches"] += mism
-        checks["four_step_phase"]["cases"].append(
-            {"case": f"phase {mode}, prepare q+bsk", "shape": list(m.shape),
-             "mismatches": mism})
-        max_err["four_step_phase"] = max(max_err["four_step_phase"], err)
-        if mode == "pre":            # the row of the kernels line
-            nbytes, imads, int8_ops, _ = four_step_work("four_step_phase",
-                                                        m, tb)
-            rows["four_step_phase"], terms = timed_row(
-                "four_step_phase", kern, ref, (m,), tb, nbytes, imads, 0,
-                int8_ops)
-            checks["four_step_phase"].update(terms)
+    def ref(v, t):
+        return fsm.phase_plain(v, t.A_wg, t.T, "pre", t)
+    nbytes, imads, int8_ops, fmas = four_step_work("four_step_phase", m, tb)
+    rows["four_step_phase"], terms = timed_row(
+        "four_step_phase", kern, ref, (m,), tb, nbytes, imads, 0, int8_ops,
+        fmas)
+    checks["four_step_phase"].update(terms)
     for name in fsm.KERNEL_NAMES:
         rows[name]["max_abs_err"] = max_err[name]
 
@@ -555,29 +589,31 @@ def timed_row(name, kern, plain, inputs, c, nbytes, imads, max_err,
 def four_step_work(name: str, x: torch.Tensor, tb: fsm.MxuNttTables):
     """(bytes, 32-bit multiply-adds, int8 tensor-core operations, FP64
     multiply-adds) of one launch on `x`, as csrc/four_step.cu does the work;
-    a phase launch with its grid.  Bytes: each input and output word once,
-    the limbs' weights (kernel 8: in wgmma's layout, padded), grid and
-    scalars once.  Tensor cores: 25 digit-pair products of each multiply-add
-    of each matrix product, two operations each.  Kernel 9 on the integer
-    pipe: for each output of its product a Barrett step and a Shoup product
-    (the recombination), and one Shoup product a word for the grid.  Kernel
-    8: for each output of each product eight multiply-adds of a group sum
-    into its 64-bit word (integer pipe), a beta = 52 Shoup product (four)
-    and the final reduction (two) on the FP64 pipe, and one more Shoup
-    product a word for the grid: 16 of each a word."""
+    a phase launch (kernel 9, one product) with its grid, kernel 8 two
+    products and one grid.  Bytes: each input and output word once, the
+    limbs' weights (in wgmma's layout, padded), the grid's words (kernel 8:
+    and their beta = 40 Shoup words) and the fold scalars once.  Tensor
+    cores: 25 digit-pair products of each multiply-add of each matrix
+    product, two operations each.  For each output of each product: eight
+    multiply-adds of a group sum into its 64-bit word (integer pipe), a
+    beta = 52 Shoup product (four) and the final reduction (two) on the FP64
+    pipe; and four more a word for the grid (kernel 8's Shoup product,
+    kernel 9's Barrett product from the word alone: a * w, its error, the
+    quotient, the remainder)."""
     if name == "four_step_phase":
         K, J = x.shape[-2:]
-        n, depth, weights = K * J, K, 5 * K * K
+        n, depth, products, grid_words = K * J, K, 1, 1
+        weights = fsm.weight_bytes(K)
     else:
-        n, depth = tb.n, tb.R + tb.C
+        n, depth, products, grid_words = tb.n, tb.R + tb.C, 2, 2
         weights = tb.A_wg.shape[1] + tb.B0_wg.shape[1]
     rows = x.numel() // n
-    nbytes = 16 * x.numel() + tb.p.shape[0] * (weights + 16 * n + 32)
+    nbytes = 16 * x.numel() + tb.p.shape[0] * (weights + 8 * grid_words * n
+                                               + 32)
     int8_ops = 2 * 25 * rows * n * depth
-    if name == "four_step_phase":
-        return nbytes, rows * n * (BARRETT + 2 * SHOUP), int8_ops, 0
-    return (nbytes, rows * n * 2 * FOUR_STEP_FOLD_IMADS, int8_ops,
-            rows * n * (3 * SHOUP40_FMAS + 2 * FOUR_STEP_REDUCE_FMAS))
+    return (nbytes, rows * n * products * FOUR_STEP_FOLD_IMADS, int8_ops,
+            rows * n * (products * (SHOUP40_FMAS + FOUR_STEP_REDUCE_FMAS)
+                        + SHOUP40_FMAS))
 
 
 def phase_kernels(eng: TorchEngine, eng4: TorchEngine, rng):
@@ -999,10 +1035,16 @@ def phase_timing(eng: TorchEngine, inputs, card: str, rows: dict) -> dict:
             "plain_ntt_ms": plain_ntt}
 
 
-def staged_two_launch(x: torch.Tensor, tb: fsm.MxuNttTables):
+def staged_two_launch(x: torch.Tensor, tb: fsm.MxuNttTables,
+                      launches=None):
     """``fsm.ntt_two_launch`` step by step with a CUDA event before each, as
     ``staged_mul_relin`` does: the result and the milliseconds of the two
-    launches of kernel 9 and of the two torch transposes."""
+    launches of kernel 9 and of the two torch transposes.  `launches`: the
+    two launches ("none" on the R x C matrices, "pre" on their transposes)
+    as callables, this checkout's kernel by default."""
+    first, second = launches or (
+        lambda m: fsm.phase(m, tb.A_wg, None, "none", tb),
+        lambda m: fsm.phase(m, tb.B0_wg, tb.TT, "pre", tb))
     marks = []
 
     def mark(label):
@@ -1012,12 +1054,11 @@ def staged_two_launch(x: torch.Tensor, tb: fsm.MxuNttTables):
 
     hold_device(1.0)
     mark("phase_none")
-    y = fsm.phase(x.view(x.shape[:-1] + (tb.R, tb.C)), tb.A_dig, None,
-                  "none", tb)
+    y = first(x.view(x.shape[:-1] + (tb.R, tb.C)))
     mark("transpose")
     yt = y.transpose(-1, -2).contiguous()
     mark("phase_pre")
-    zt = fsm.phase(yt, tb.B0_dig, (tb.TT, tb.TT_shoup), "pre", tb)
+    zt = second(yt)
     mark("transpose_back")
     out = zt.transpose(-1, -2).reshape(x.shape)
     mark("end")

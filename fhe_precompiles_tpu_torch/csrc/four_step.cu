@@ -6,7 +6,8 @@
 //                            (_fused_kernel_factory of
 //                            fhe_precompiles_tpu/ops/pallas_ntt.py)
 //   four_step_phase_kernel   replaces PallasNtt._phase
-//                            (_phase_kernel_factory, modes none/pre/post)
+//                            (_phase_kernel_factory, modes none/pre/post):
+//                            kernel 9, one product a launch
 //
 // What they compute (ops/four_step.py holds the tables and the plain
 // versions).  A row of n = R * C words, reduced mod p of its limb, is the
@@ -15,8 +16,9 @@
 // A'.  A, B0, A', B0' come as five base-256 digit planes (uint8), T and T'
 // as words with their Shoup companions.  Canonical residues in and out;
 // moduli below 2^37.  The phase kernel runs one product W @ X over a K x J
-// matrix, with the grid multiplied in before it (mode 1), after it (mode 2)
-// or not at all (0): the two-launch form of the transform.
+// matrix, with the grid G multiplied in before it (mode 1, "pre":
+// W @ (G (*) X)), after it (mode 2, "post": G (*) (W @ X)) or not at all
+// (0): the two-launch form of the transform.
 //
 // Each product W @ X is 25 digit-pair products u8 x u8 -> s32 on the
 // tensor cores, the pair products of equal weight 256^s (s = da + db)
@@ -28,17 +30,11 @@
 // N = C), grid, c-product (K = C, N = R); inverse: c-product, grid,
 // r-product.
 //
-// four_step_phase_kernel (kernel 9) is the first, simple design: a block a
-// row, the row loaded FS_LOADS words a thread at a time, mma.sync.m16n8k32
-// a warp per 16 x 8 tile with its A fragments fetched through L1 and L2 for
-// every tile, and the nine sums recombined as v = lo + hi * 2^40,
-// v mod p = barrett(lo) + shoup(hi, 2^40 mod p) with 64-bit words on the
-// integer pipe.  Its operand X (K x N) is stored column by column, each
-// column's K digits contiguous, columns FS_PAD bytes apart beyond K.
-//
-// four_step_kernel (kernel 8) began as that design; what held it back was
-// latency: a block a row, 118-120 registers a thread, the A fragments
-// fetched again for every tile of every row, the 64-bit epilogue.  Now:
+// Both kernels began as a block a row on mma.sync, the A fragments
+// fetched again for every tile of every row, and a 64-bit Barrett epilogue
+// on the integer pipe; what held them back was latency.  Kernel 8 (the
+// whole transform) is now, and kernel 9 (one product) is built of the same
+// pieces:
 // - Persistent, limb-affine blocks of four warpgroups, one block an SM, as
 //   ntt.cu: the grid is what the card holds at once, a multiple of L; block
 //   b owns limb l = b % L and walks that limb's rows.
@@ -75,6 +71,27 @@
 //   that lazy value to below 1.1875p, and one conditional subtract makes
 //   either product's output canonical.
 //
+// Kernel 9 is the same for one product, in blocks of two warpgroups, two
+// blocks an SM where their shared memory fits (one block's waits for its
+// copies then overlap the other's arithmetic; one block of four
+// warpgroups an SM measured slower): the limb's weight matrix and its grid
+// words staged once a block; each batch's raw rows brought by TMA into a
+// staging buffer, the next batch's while this one computes; in mode 1 the
+// split multiplies each word by its grid word first; the epilogue makes
+// the lazy value canonical, or multiplies it by its grid word (mode 2),
+// and stores the output pair (i, j), (i, j + 1) of the row-major K x J
+// matrix as one 16-byte word (TMA bulk stores of a staged row measured
+// slower).  Its grid product is an exact FP64 Barrett product from the
+// word alone (grid_mul_w), so that the grid is 8 bytes a word and fits
+// in shared memory (word and Shoup word read from device memory cost as
+// much time as the product).
+// Shared memory (phase_fit): FS_BARRIER_BYTES, the weights, the grid (8KJ
+// bytes) where it fits, then per row of a batch the operand's planes
+// (5 max(J, 32) max(K, 32) bytes) and an 8KJ-byte staging buffer where it
+// fits: K = J = 64, one row, both staged, 106,512 bytes, two blocks an SM;
+// K = 128, J = 64, two rows, grid staged, rows not, 229,392, one block;
+// K = J = 128, one row, neither, 163,856.
+//
 // Shared memory of kernel 8 (FS_BARRIER_BYTES, the weights, then per row of
 // a batch the two operands' planes and an 8n-byte staging buffer; a weight
 // matrix's rows padded to a multiple of 64, a depth of 16 to 32, an operand
@@ -83,15 +100,16 @@
 // (R = 128, C = 64): 102,400 of weights, 81,920 of planes: one row,
 // unstaged, 184,336 bytes.  R = C = 128 does not fit and is refused.
 //
-// What bounds it, by count: at n = 4096 the bytes (a row read and written
-// once, 16 bytes a word); then the tensor cores (25 n (R + C) u8
-// multiply-adds a row) and the FP64 pipe (16 multiply-adds an output word).
-// What it spends more than that, and where: PERF.md, from chip_compare.py's
-// ablations.
+// What bounds them, by count: at n = 4096 the bytes (a row read and
+// written once, 16 bytes a word; kernel 9 also reads its grid); then the
+// tensor cores (25 n K u8 multiply-adds a row and product) and the FP64
+// pipe (8 multiply-adds an output word and product, 4 more a grid
+// product).  What they spend more than that, and where: PERF.md, from
+// chip_compare.py's ablations.
 //
 // Plain C interface, as in ntt.cu: raw pointers and the stream in,
-// cudaGetLastError() out, no synchronisation.  R and C must be 16, 32, 64
-// or 128.
+// cudaGetLastError() out, no synchronisation.  R and C (K and J) must be
+// 16, 32, 64 or 128.
 #include <cuda_runtime.h>
 #include "modmath.cuh"
 #include "tma.cuh"
@@ -101,172 +119,24 @@ typedef unsigned char u8;
 
 #define FS_NDIG 5
 #define FS_SUMS (2 * FS_NDIG - 1)
-#define FS_PAD 16
-// The phase kernel's threads a block and words of the row a thread loads at
-// once: of 128, 256 and 512 threads and of one and eight words in flight,
-// these measured best at n = 4096 on an H100.
-#define FS_THREADS 256
-#define FS_LOADS 8
 #define FS_MAX_SMEM 232448          // what one block may use on sm_90
-// kernel 8: threads of a block (four warpgroups, one block an SM), rows a
-// batch at most, the mbarriers ahead of the weights, cards whose launch
-// geometry is kept
-#define FS8_THREADS 512
+// threads of a block (four warpgroups, one block an SM), rows a batch at
+// most, the mbarriers ahead of the weights, cards whose launch geometry is
+// kept
+#define FS_THREADS 512
 #define FS_MAX_ROWS 4
 #define FS_BARRIER_BYTES 16
 #define FS_CACHED_DEVICES 64
-
-struct LimbScalars {
-    u64 p, mu, w40, w40s;           // p, floor(2^64 / p), 2^40 mod p, Shoup
-};
-
-__device__ __forceinline__ LimbScalars limb_scalars(const u64* s, int l) {
-    LimbScalars r;
-    r.p = s[4 * l];
-    r.mu = s[4 * l + 1];
-    r.w40 = s[4 * l + 2];
-    r.w40s = s[4 * l + 3];
-    return r;
-}
-
-// d += a * b on the tensor cores: a 16 x 32 u8 (row), b 32 x 8 u8 (col),
-// d 16 x 8 s32.  Fragments as the PTX ISA lays them out, g = lane / 4,
-// t = lane % 4: a = {row g k 4t.., row g+8 k 4t.., row g k 16+4t..,
-// row g+8 k 16+4t..}, four digits a register, lowest k in the low byte;
-// b = {col g k 4t.., col g k 16+4t..}; d = {(g, 2t), (g, 2t+1), (g+8, 2t),
-// (g+8, 2t+1)}.
-__device__ __forceinline__ void mma_u8(int (&d)[4], const u32 (&a)[4],
-                                       const u32 (&b)[2]) {
-    asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// the five base-256 digits of v, one in each plane
-__device__ __forceinline__ void put_digits(u8* X, int plane, int at, u64 v) {
-#pragma unroll
-    for (int d = 0; d < FS_NDIG; ++d) X[d * plane + at] = (u8)(v >> (8 * d));
-}
-
-// the row from device memory, FS_LOADS words a thread in flight:
-// put(idx, word) for every idx < n
-template <class Put>
-__device__ __forceinline__ void load_row(const u64* __restrict__ src, int n,
-                                         Put put) {
-    for (int base = threadIdx.x; base < n; base += FS_LOADS * blockDim.x) {
-        u64 v[FS_LOADS];
-#pragma unroll
-        for (int j = 0; j < FS_LOADS; ++j) {
-            const int idx = base + j * blockDim.x;
-            v[j] = idx < n ? src[idx] : 0ull;
-        }
-#pragma unroll
-        for (int j = 0; j < FS_LOADS; ++j) {
-            const int idx = base + j * blockDim.x;
-            if (idx < n) put(idx, v[j]);
-        }
-    }
-}
-
-// out = W @ X mod p for W (K x K) in device memory, digit planes
-// W[d * K * K + i * K + k], and X (K x N) in shared memory, digit planes
-// X[d * N * (K + PAD) + n * (K + PAD) + k].  Each warp takes 16 x 8 output
-// tiles in turn and hands every output to epi(i, n, value), value canonical,
-// after multiplying it by the grid word at gidx(i, n) when G is not null.
-template <class GridIdx, class Epi>
-__device__ __forceinline__ void digit_product(const u8* X, int K, int N,
-                                              const u8* __restrict__ W,
-                                              const LimbScalars& s,
-                                              const u64* __restrict__ G,
-                                              const u64* __restrict__ Gs,
-                                              GridIdx gidx, Epi epi) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const int SK = K + FS_PAD, plane = N * SK, wplane = K * K;
-    const int tiles_n = N >> 3, tiles = (K >> 4) * tiles_n;
-    for (int tile = threadIdx.x >> 5; tile < tiles; tile += blockDim.x >> 5) {
-        const int i0 = (tile / tiles_n) << 4, n0 = (tile % tiles_n) << 3;
-        int acc[FS_SUMS][4];
-#pragma unroll
-        for (int s2 = 0; s2 < FS_SUMS; ++s2)
-            acc[s2][0] = acc[s2][1] = acc[s2][2] = acc[s2][3] = 0;
-        for (int k0 = 0; k0 < K; k0 += 32) {
-            // K = 16: the upper half of the 32-deep step is zero
-            const bool upper = k0 + 16 < K;
-            u32 b[FS_NDIG][2];
-#pragma unroll
-            for (int d = 0; d < FS_NDIG; ++d) {
-                const u8* xp = X + d * plane + (n0 + g) * SK + k0 + 4 * t;
-                b[d][0] = *reinterpret_cast<const u32*>(xp);
-                b[d][1] = upper ? *reinterpret_cast<const u32*>(xp + 16) : 0u;
-            }
-#pragma unroll
-            for (int da = 0; da < FS_NDIG; ++da) {
-                const u32* wp = reinterpret_cast<const u32*>(
-                    W + da * wplane + (i0 + g) * K + k0 + 4 * t);
-                const int row8 = 2 * K;          // 8 rows on, in words
-                u32 a[4];
-                a[0] = __ldg(wp);
-                a[1] = __ldg(wp + row8);
-                a[2] = upper ? __ldg(wp + 4) : 0u;
-                a[3] = upper ? __ldg(wp + row8 + 4) : 0u;
-#pragma unroll
-                for (int db = 0; db < FS_NDIG; ++db)
-                    mma_u8(acc[da + db], a, b[db]);
-            }
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            u64 lo = 0, hi = 0;
-#pragma unroll
-            for (int s2 = 0; s2 < FS_NDIG; ++s2)
-                lo += (u64)(u32)acc[s2][e] << (8 * s2);
-#pragma unroll
-            for (int s2 = FS_NDIG; s2 < FS_SUMS; ++s2)
-                hi += (u64)(u32)acc[s2][e] << (8 * (s2 - FS_NDIG));
-            const int i = i0 + g + ((e >> 1) << 3), j = n0 + 2 * t + (e & 1);
-            u64 v = csub(barrett(lo, s.p, s.mu)
-                         + mul_shoup(hi, s.w40, s.w40s, s.p), s.p);
-            if (G != nullptr) {
-                const int idx = gidx(i, j);
-                v = mul_shoup(v, G[idx], Gs[idx], s.p);
-            }
-            epi(i, j, v);
-        }
-    }
-}
-
-// one product over a K x J matrix a row: out = W @ (G (*) X) (mode 1),
-// G (*) (W @ X) (mode 2) or W @ X (mode 0)
-__global__ void __launch_bounds__(FS_THREADS)
-four_step_phase_kernel(const u64* __restrict__ in, u64* __restrict__ out,
-                       int L, int K, int J, long long in_gstride,
-                       const u64* __restrict__ scal, const u8* __restrict__ w,
-                       const u64* __restrict__ grid,
-                       const u64* __restrict__ grid_s, int mode) {
-    extern __shared__ __align__(16) u8 smem[];
-    const long long row = blockIdx.x;
-    const int l = (int)(row % L), n = K * J, lj = __ffs(J) - 1;
-    const LimbScalars s = limb_scalars(scal, l);
-    const u64* __restrict__ src = in + (row / L) * in_gstride + (long long)l * n;
-    u64* __restrict__ dst = out + row * n;
-    const u64* __restrict__ G = grid + (long long)l * n;
-    const u64* __restrict__ Gs = grid_s + (long long)l * n;
-    const u8* __restrict__ W = w + (long long)l * FS_NDIG * K * K;
-    const int KP = K + FS_PAD, plane = J * KP;
-
-    load_row(src, n, [&](int idx, u64 v) {
-        if (mode == 1) v = mul_shoup(v, G[idx], Gs[idx], s.p);
-        put_digits(smem, plane, (idx & (J - 1)) * KP + (idx >> lj), v);
-    });
-    __syncthreads();
-    auto at = [&](int i, int j) { return (i << lj) + j; };
-    digit_product(smem, K, J, W, s, mode == 2 ? G : nullptr, Gs, at,
-                  [&](int i, int j, u64 v) { dst[at(i, j)] = v; });
-}
+// kernel 9: threads of a block (two warpgroups), so that two blocks share
+// an SM where their shared memory fits (an SM's 233,472 bytes, 1,024 of
+// them kept by the card for each block): one block's waits for its copies
+// overlap the other's arithmetic
+#define FS_PHASE_THREADS 256
+#define FS_SM_SMEM 233472
+#define FS_BLOCK_RESERVED 1024
 
 // ---------------------------------------------------------------------------
-// kernel 8: the whole transform, persistent blocks, wgmma
+// the pieces of kernels 8 and 9: persistent blocks, wgmma
 // ---------------------------------------------------------------------------
 // A limb's constants for the epilogue, as doubles (all exact): p,
 // c32 = 2^32 mod p and its beta = 52 Shoup word floor(c32 * 2^52 / p) * 2^-52,
@@ -371,37 +241,50 @@ __device__ __forceinline__ void put_pair(u8* X, int plane, int at, u64 v0,
         (unsigned short)((u32)(v0 >> 32) | ((u32)(v1 >> 32) << 8));
 }
 
+// The digits of four canonical words v (< 2^37) of neighbouring depths of
+// one column, a 32-bit store a digit plane at X + at, planes `plane` bytes
+// apart.
+__device__ __forceinline__ void put_quad(u8* X, int plane, int at,
+                                         const u64 (&v)[4]) {
+    const u32 x0 = (u32)v[0], x1 = (u32)v[1], x2 = (u32)v[2], x3 = (u32)v[3];
+    u32* dst = reinterpret_cast<u32*>(X + at);
+#pragma unroll
+    for (int d = 0; d < FS_NDIG - 1; ++d) {
+        const int sel = d | ((d + 4) << 4);
+        dst[d * (plane >> 2)] = __byte_perm(__byte_perm(x0, x1, sel),
+                                            __byte_perm(x2, x3, sel), 0x5410);
+    }
+    dst[(FS_NDIG - 1) * (plane >> 2)] =
+        (u32)(v[0] >> 32) | ((u32)(v[1] >> 32) << 8)
+        | ((u32)(v[2] >> 32) << 16) | ((u32)(v[3] >> 32) << 24);
+}
+
+// Where thread slot u of a split writes in an operand of depth K: four
+// consecutive depths b .. b + 3 of column a.  A warp fills one core matrix,
+// 32 banks.
+__device__ __forceinline__ void split_slot(int u, int K, int& a, int& b) {
+    const int kchunks = K >> 4, core = u >> 5, kc = core % kchunks;
+    a = ((core / kchunks) << 3) + ((u >> 2) & 7);
+    b = (kc << 4) + ((u & 3) << 2);
+}
+
 // A raw row (generic pointer: the staging buffer, or device memory) into
 // the first product's operand X (K x N, element (column a, depth b) at
 // wg_at(a, b, K)).  Raw word (a, b) is at b * C + a (forward: the
 // r-product, b = r, a = c) or a * C + b (inverse: the c-product, b = c,
-// a = r).  A thread takes four consecutive depths of one column and writes
-// one 32-bit word a digit plane; a warp fills one core matrix, 32 banks.
+// a = r).
 template <bool INVERSE>
 __device__ __forceinline__ void split_row(const u64* raw, u8* X, int K, int N,
                                           int C) {
-    const int plane = fs_np(N) * fs_kp(K), kchunks = K >> 4;
-    for (int u = threadIdx.x; u < N * (K >> 2); u += FS8_THREADS) {
-        const int core = u >> 5, kc = core % kchunks;
-        const int a = ((core / kchunks) << 3) + ((u >> 2) & 7);
-        const int b = (kc << 4) + ((u & 3) << 2);
+    const int plane = fs_np(N) * fs_kp(K);
+    for (int u = threadIdx.x; u < N * (K >> 2); u += FS_THREADS) {
+        int a, b;
+        split_slot(u, K, a, b);
         u64 v[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
             v[j] = INVERSE ? raw[a * C + b + j] : raw[(b + j) * C + a];
-        const u32 x0 = (u32)v[0], x1 = (u32)v[1], x2 = (u32)v[2],
-                  x3 = (u32)v[3];
-        u32* dst = reinterpret_cast<u32*>(X + wg_at(a, b, K));
-#pragma unroll
-        for (int d = 0; d < FS_NDIG - 1; ++d) {
-            const int sel = d | ((d + 4) << 4);
-            dst[d * (plane >> 2)] = __byte_perm(__byte_perm(x0, x1, sel),
-                                                __byte_perm(x2, x3, sel),
-                                                0x5410);
-        }
-        dst[(FS_NDIG - 1) * (plane >> 2)] =
-            (u32)(v[0] >> 32) | ((u32)(v[1] >> 32) << 8)
-            | ((u32)(v[2] >> 32) << 16) | ((u32)(v[3] >> 32) << 24);
+        put_quad(X, plane, wg_at(a, b, K), v);
     }
 }
 
@@ -487,7 +370,7 @@ __device__ __forceinline__ void wg_groups(int (&acc0)[16], int (&acc1)[16],
         wg_groups<Q + 1, KS, W16, X16>(acc0, acc1, x, wa, xb, m);
 }
 
-template <int KS, int KSN, class Epi>
+template <int KS, int KSN, int THREADS = FS_THREADS, class Epi>
 __device__ __forceinline__ void wg_product_k(const u8* X0, int slot, int rows,
                                              int K, int N, const u8* W,
                                              const Mod52& m, Epi epi) {
@@ -503,7 +386,7 @@ __device__ __forceinline__ void wg_product_k(const u8* X0, int slot, int rows,
     constexpr int X16 = (32 * KSN * 32 * KS) >> 4;
     const unsigned sbo = 8u * KP;
     for (int task = wg; task < rows * mtiles * ntiles;
-         task += FS8_THREADS >> 7) {
+         task += THREADS >> 7) {
         const int row = task / (mtiles * ntiles);
         const int rest = task - row * mtiles * ntiles;
         const int mt = rest / ntiles, nt = rest - mt * ntiles;
@@ -569,7 +452,7 @@ static long long four_step_smem(int R, int C, Fit f) {
 // 32-deep steps of the r- and c-product, max(R, 32) / 32 and max(C, 32) / 32
 // (one instance for each pair: the products' loops then unroll fully).
 template <bool INVERSE, int KSR, int KSC>
-__global__ void __launch_bounds__(FS8_THREADS, 1)
+__global__ void __launch_bounds__(FS_THREADS, 1)
 four_step_kernel(const u64* __restrict__ in, u64* __restrict__ out, int L,
                  int R, int C, int rows, int staged, long long groups,
                  long long in_gstride, const u64* __restrict__ scal,
@@ -685,35 +568,237 @@ four_step_kernel(const u64* __restrict__ in, u64* __restrict__ out, int L,
     }
 }
 
-static bool kernel_side(int x) {
-    return x == 16 || x == 32 || x == 64 || x == 128;
+// ---------------------------------------------------------------------------
+// kernel 9: one product a launch
+// ---------------------------------------------------------------------------
+// a * w mod p, canonical, for a lazy a < 1.5p and a canonical grid word w,
+// from the word alone (kernel 9 keeps no Shoup words, so that the grid is
+// 8 bytes a word), on the FP64 pipe: h = a w rounded, its error
+// l = a w - h (exact: a w < 2^75, |l| <= 2^21); q = floor(h * rinv) with
+// rinv = 1 / p rounded, within one of floor(a w / p) (h * rinv is a w / p
+// within 2^-14), less one; r = h - q p (exact: an integer below 2^53)
+// plus l is a w - q p, in [0, 3p), read back through 2^52.  The two
+// conditional subtracts on the integer pipe (p: the modulus as an
+// integer), which leaves the FP64 pipe to the rest of the split and the
+// epilogue.
+__device__ __forceinline__ u64 grid_mul_w(double a, u64 w, double rinv,
+                                          const Mod52& m, u64 p) {
+    const double wd = exact_double(w);
+    const double h = __dmul_rn(a, wd);
+    const double l = __fma_rn(a, wd, -h);
+    const double q = __dsub_rn(__fma_rd(h, rinv, 0x1p52), 0x1p52 + 1.0);
+    const double r = __dadd_rn(__fma_rn(-q, m.p, h), __dadd_rn(l, 0x1p52));
+    return csub(csub((u64)__double_as_longlong(r) & 0xFFFFFFFFFFFFFull, p),
+                p);
 }
 
-template <class Kernel>
-static int prepare_launch(Kernel kernel, long long smem, long long rows,
-                          int L) {
-    if (L < 1 || rows < 0 || rows % L != 0 || rows > 0x7fffffffLL
-            || smem > FS_MAX_SMEM)
-        return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {   // more than a block gets without asking; the
-                              // attribute is the device's, so set it each time
-        cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
+// A batch's raw rows (row r at raw + r * raw_step: the staging buffer, or
+// device memory) into their operands X0 + r * slot (K x J, element
+// (column j, depth k) at wg_at(j, k, K)) from raw word k * J + j, as
+// split_row<false> does.  PRE: each word first times its grid word
+// G[k * J + j] (grid_mul_w; a canonical word meets its a < 1.5p), the grid
+// words loaded once for all the batch's rows.
+template <bool PRE>
+__device__ __forceinline__ void split_batch(const u64* raw,
+                                            long long raw_step, int rows,
+                                            u8* X0, int slot, int K, int J,
+                                            const u64* G, double rinv,
+                                            const Mod52& m, u64 p) {
+    const int plane = fs_np(J) * fs_kp(K);
+    // four slots a thread in flight (a row of 64 x 64 at once)
+#pragma unroll 4
+    for (int u = threadIdx.x; u < J * (K >> 2); u += FS_PHASE_THREADS) {
+        int a, b;
+        split_slot(u, K, a, b);
+        const int at = wg_at(a, b, K);
+        u64 g[4];
+        if (PRE) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) g[q] = G[(b + q) * J + a];
+        }
+#pragma unroll
+        for (int r = 0; r < FS_MAX_ROWS; ++r) {
+            if (r >= rows) break;
+            u64 v[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                v[q] = raw[r * raw_step + (b + q) * J + a];
+                if (PRE)
+                    v[q] = grid_mul_w(exact_double(v[q]), g[q], rinv, m, p);
+            }
+            put_quad(X0 + r * slot, plane, at, v);
+        }
     }
-    return (int)cudaSuccess;
+}
+
+// out = W @ (G (*) X) (mode 1), G (*) (W @ X) (mode 2) or W @ X (mode 0)
+// over each K x J matrix of a stack (groups, L, K, J), the input's groups
+// in_gstride words apart.  Shared memory: two mbarriers (weights and grid,
+// staged rows), W's digit planes, the limb's K x J grid words if
+// grid_staged (else they are read from device memory), `rows` operands'
+// planes, `rows` input staging buffers of n = K J words if in_staged.  The
+// outputs go out as 16-byte stores: measured against TMA bulk stores of a
+// staged row, they were faster.  KS, KSN: the 32-deep steps of K and of J,
+// max(K, 32) / 32 and max(J, 32) / 32 (one instance for each pair).  mode
+// is the same for every thread.
+template <int KS, int KSN>
+__global__ void __launch_bounds__(FS_PHASE_THREADS, 2)
+four_step_phase_kernel(const u64* __restrict__ in, u64* __restrict__ out,
+                       int L, int K, int J, int rows, int grid_staged,
+                       int in_staged, long long groups, long long in_gstride,
+                       const u64* __restrict__ scal, const u8* __restrict__ w,
+                       const u64* __restrict__ grid, int mode) {
+    extern __shared__ __align__(16) u8 smem[];
+    u64* bars = reinterpret_cast<u64*>(smem);
+    const int n = K * J, w_bytes = weight_bytes(K);
+    const int slot = FS_NDIG * fs_np(J) * fs_kp(K);
+    u8* W = smem + FS_BARRIER_BYTES;
+    u64* G_staged = reinterpret_cast<u64*>(W + w_bytes);
+    u8* X = reinterpret_cast<u8*>(G_staged + (grid_staged ? n : 0));
+    u64* stage = reinterpret_cast<u64*>(X + rows * slot);
+
+    const int l = blockIdx.x % L;
+    const long long first = blockIdx.x / L, step = gridDim.x / L;
+    const long long count = (groups - first + step - 1) / step;   // >= 1
+    const Mod52 m = mod52(scal, l);
+    const u64 p = scal[4 * l];
+    const double rinv = __ddiv_rn(1.0, m.p);
+    const u64* src = in + first * in_gstride + (long long)l * n;
+    u64* dst = out + (first * L + l) * n;
+    const long long src_step = step * in_gstride, dst_step = step * L * n;
+    const u64* G = mode == 0 ? nullptr
+                 : grid_staged ? G_staged : grid + (long long)l * n;
+    const unsigned row_bytes = 8u * (unsigned)n;
+    const bool load_grid = mode != 0 && grid_staged;
+
+    // thread 0: the raw rows i0 .. of a batch into the staging buffers
+    auto issue = [&](long long i0) {
+        const int nr = (int)(count - i0 < rows ? count - i0 : rows);
+        mbar_expect_tx(&bars[1], (unsigned)nr * row_bytes);
+        for (int r = 0; r < nr; ++r)
+            bulk_load(stage + (long long)r * n, src + (i0 + r) * src_step,
+                      row_bytes, &bars[1]);
+    };
+    auto split = [&](const u64* raw, long long raw_step, int nr) {
+        if (mode == 1)
+            split_batch<true>(raw, raw_step, nr, X, slot, K, J, G, rinv, m,
+                              p);
+        else
+            split_batch<false>(raw, raw_step, nr, X, slot, K, J, G, rinv, m,
+                               p);
+    };
+    if (threadIdx.x == 0) {
+        mbar_init(&bars[0], 1);
+        mbar_init(&bars[1], 1);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        mbar_expect_tx(&bars[0],
+                       (unsigned)w_bytes + (load_grid ? row_bytes : 0u));
+        bulk_load(W, w + (long long)l * w_bytes, (unsigned)w_bytes, &bars[0]);
+        if (load_grid)
+            bulk_load(G_staged, grid + (long long)l * n, row_bytes, &bars[0]);
+        if (in_staged) issue(0);
+    }
+    mbar_wait(&bars[0], 0);
+
+    int batch = 0;
+    for (long long i0 = 0; i0 < count; i0 += rows, ++batch) {
+        const int nr = (int)(count - i0 < rows ? count - i0 : rows);
+        if (in_staged) {
+            mbar_wait(&bars[1], (unsigned)(batch & 1));
+            split(stage, n, nr);
+        } else {
+            split(src + i0 * src_step, src_step, nr);
+        }
+        // the planes' ordinary stores, then wgmma's reads of them (the async
+        // proxy); the staging buffers are free for the next batch, whose
+        // copies overlap this batch's product
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        __syncthreads();
+        if (in_staged && threadIdx.x == 0 && i0 + rows < count)
+            issue(i0 + rows);
+        wg_product_k<KS, KSN, FS_PHASE_THREADS>(X, slot, nr, K, J, W, m,
+                   [&](int row, int i, int j, double v0, double v1) {
+            const int idx = i * J + j;
+            ulonglong2 o;
+            if (mode == 2) {
+                const ulonglong2 g =
+                    *reinterpret_cast<const ulonglong2*>(G + idx);
+                o = make_ulonglong2(grid_mul_w(v0, g.x, rinv, m, p),
+                                    grid_mul_w(v1, g.y, rinv, m, p));
+            } else {
+                o = make_ulonglong2(canonical(v0, m), canonical(v1, m));
+            }
+            *reinterpret_cast<ulonglong2*>(dst + (i0 + row) * dst_step
+                                           + idx) = o;
+        });
+        __syncthreads();          // every warpgroup is done with the planes
+    }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+static bool kernel_side(int x) {
+    return x == 16 || x == 32 || x == 64 || x == 128;
 }
 
 static int side_index(int x) {
     return x == 16 ? 0 : x == 32 ? 1 : x == 64 ? 2 : 3;
 }
 
+// 32-deep steps of a product over a side of 16, 32, 64 or 128
+static int ksteps(int K) { return K <= 32 ? 1 : K >> 5; }
+
+// launch geometry kept for each card and pair of sides
+typedef int Capacity[FS_CACHED_DEVICES][4][4];
+
+// The blocks of `kern` (`threads` threads, `smem` bytes each) the card
+// holds at once, found once for each card and sides a, b, as in ntt.cu:
+// set-up kept out of every later launch.
+template <class Kernel>
+static cudaError_t blocks_at_once(Kernel kern, int threads, long long smem,
+                                  Capacity& cache, int a, int b, int* cap) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    int* slot = dev < FS_CACHED_DEVICES
+        ? &cache[dev][side_index(a)][side_index(b)] : nullptr;
+    *cap = slot ? *slot : 0;
+    if (*cap) return cudaSuccess;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             FS_MAX_SMEM);
+    int sms = 0, per_sm = 0;
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kern, threads, (size_t)smem);
+    if (e != cudaSuccess) return e;
+    *cap = sms * per_sm;
+    if (*cap < 1) return cudaErrorInvalidConfiguration;
+    if (slot) *slot = *cap;
+    return cudaSuccess;
+}
+
+// as many blocks as the card holds, a multiple of L, each limb's blocks at
+// most its rows
+static unsigned persistent_blocks(int cap, long long groups, int L) {
+    long long per_limb = cap / L;
+    if (per_limb > groups) per_limb = groups;
+    if (per_limb < 1) per_limb = 1;
+    return (unsigned)(per_limb * L);
+}
+
+static bool bad_rows(long long rows, int L) {
+    return L < 1 || rows < 0 || rows % L != 0 || rows > 0x7fffffffLL;
+}
+
 typedef void (*Kernel8)(const u64*, u64*, int, int, int, int, int, long long,
                         long long, const u64*, const u8*, const u8*,
                         const u64*, const u64*);
-
-// 32-deep steps of a product over a side of 16, 32, 64 or 128
-static int ksteps(int K) { return K <= 32 ? 1 : K >> 5; }
 
 // kernel 8's instance for the two products' steps (R = C = 128 has none)
 template <bool INVERSE, int KSR>
@@ -738,50 +823,105 @@ static int launch_four_step(const void* in, void* out, long long rows, int L,
                             const void* scal, const void* w_r,
                             const void* w_c, const void* grid,
                             const void* grid_s, void* stream) {
-    if (!kernel_side(R) || !kernel_side(C) || L < 1 || rows < 0
-            || rows % L != 0 || rows > 0x7fffffffLL)
+    if (!kernel_side(R) || !kernel_side(C) || bad_rows(rows, L))
         return (int)cudaErrorInvalidValue;
     const Fit f = four_step_fit(R, C);
     const Kernel8 kern = kernel8<INVERSE>(R, C);
     if (f.rows < 1 || kern == nullptr) return (int)cudaErrorInvalidValue;
     if (rows == 0) return (int)cudaSuccess;
     const long long smem = four_step_smem(R, C, f);
-    // The blocks the card holds at once, found once for each card and
-    // (R, C), as in ntt.cu: set-up kept out of every later launch.
-    static int capacity[FS_CACHED_DEVICES][4][4];
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
+    static Capacity capacity;
+    int cap = 0;
+    const cudaError_t e = blocks_at_once(kern, FS_THREADS, smem, capacity, R,
+                                         C, &cap);
     if (e != cudaSuccess) return (int)e;
-    int* slot = dev < FS_CACHED_DEVICES
-        ? &capacity[dev][side_index(R)][side_index(C)] : nullptr;
-    int cap = slot ? *slot : 0;
-    if (cap == 0) {
-        e = cudaFuncSetAttribute(kern,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 FS_MAX_SMEM);
-        int sms = 0, per_sm = 0;
-        if (e == cudaSuccess)
-            e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                       dev);
-        if (e == cudaSuccess)
-            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &per_sm, kern, FS8_THREADS, (size_t)smem);
-        if (e != cudaSuccess) return (int)e;
-        cap = sms * per_sm;
-        if (cap < 1) return (int)cudaErrorInvalidConfiguration;
-        if (slot) *slot = cap;
-    }
-    // as many blocks as the card holds, a multiple of L, each limb's blocks
-    // at most its rows
     const long long groups = rows / L;
-    long long per_limb = cap / L;
-    if (per_limb > groups) per_limb = groups;
-    if (per_limb < 1) per_limb = 1;
-    kern<<<(unsigned)(per_limb * L), FS8_THREADS, (size_t)smem,
+    kern<<<persistent_blocks(cap, groups, L), FS_THREADS, (size_t)smem,
            (cudaStream_t)stream>>>(
         (const u64*)in, (u64*)out, L, R, C, f.rows, f.staged, groups,
         in_gstride, (const u64*)scal, (const u8*)w_r, (const u8*)w_c,
         (const u64*)grid, (const u64*)grid_s);
+    return (int)cudaGetLastError();
+}
+
+// Kernel 9's batch at sides K, J: in the shared memory of one of two
+// blocks an SM, else of one block: with the grid words staged, else
+// without; with an input staging buffer, else without; as many rows (up to
+// FS_MAX_ROWS) as fit beside the weights, each with its operand's planes
+// and buffer: the first of these that holds a row (every pair of sides the
+// kernel takes has one).
+struct PhaseFit {
+    int rows, grid_staged, in_staged;
+};
+
+static long long phase_smem(int K, int J, PhaseFit f) {
+    return FS_BARRIER_BYTES + weight_bytes(K)
+           + (f.grid_staged ? 8LL * K * J : 0)
+           + (long long)f.rows * ((long long)FS_NDIG * fs_np(J) * fs_kp(K)
+                                  + (f.in_staged ? 8LL * K * J : 0));
+}
+
+static PhaseFit phase_fit(int K, int J) {
+    for (int blocks = 2; blocks >= 1; --blocks) {
+        long long budget = FS_SM_SMEM / blocks - FS_BLOCK_RESERVED;
+        if (budget > FS_MAX_SMEM) budget = FS_MAX_SMEM;
+        for (int grid_staged = 1; grid_staged >= 0; --grid_staged) {
+            for (int in_staged = 1; in_staged >= 0; --in_staged) {
+                const long long fixed =
+                    phase_smem(K, J, {0, grid_staged, in_staged});
+                const long long row =
+                    phase_smem(K, J, {1, grid_staged, in_staged}) - fixed;
+                long long rows = (budget - fixed) / row;
+                if (rows > FS_MAX_ROWS) rows = FS_MAX_ROWS;
+                if (rows >= 1) return {(int)rows, grid_staged, in_staged};
+            }
+        }
+    }
+    return {0, 0, 0};
+}
+
+typedef void (*Kernel9)(const u64*, u64*, int, int, int, int, int, int,
+                        long long, long long, const u64*, const u8*,
+                        const u64*, int);
+
+template <int KS>
+static Kernel9 kernel9_j(int ksn) {
+    if (ksn == 1) return four_step_phase_kernel<KS, 1>;
+    if (ksn == 2) return four_step_phase_kernel<KS, 2>;
+    return four_step_phase_kernel<KS, 4>;
+}
+
+// kernel 9's instance for the steps of K and J
+static Kernel9 kernel9(int K, int J) {
+    const int ks = ksteps(K), ksn = ksteps(J);
+    if (ks == 1) return kernel9_j<1>(ksn);
+    if (ks == 2) return kernel9_j<2>(ksn);
+    return kernel9_j<4>(ksn);
+}
+
+static int launch_phase(const void* in, void* out, long long rows, int L,
+                        int K, int J, long long in_gstride, const void* scal,
+                        const void* w, const void* grid, int mode,
+                        void* stream) {
+    if (!kernel_side(K) || !kernel_side(J) || bad_rows(rows, L) || mode < 0
+            || mode > 2 || (mode != 0 && grid == nullptr))
+        return (int)cudaErrorInvalidValue;
+    const PhaseFit f = phase_fit(K, J);
+    if (f.rows < 1) return (int)cudaErrorInvalidValue;
+    if (rows == 0) return (int)cudaSuccess;
+    const long long smem = phase_smem(K, J, f);
+    const Kernel9 kern = kernel9(K, J);
+    static Capacity capacity;
+    int cap = 0;
+    const cudaError_t e = blocks_at_once(kern, FS_PHASE_THREADS, smem,
+                                         capacity, K, J, &cap);
+    if (e != cudaSuccess) return (int)e;
+    const long long groups = rows / L;
+    kern<<<persistent_blocks(cap, groups, L), FS_PHASE_THREADS, (size_t)smem,
+           (cudaStream_t)stream>>>(
+        (const u64*)in, (u64*)out, L, K, J, f.rows, f.grid_staged,
+        f.in_staged, groups, in_gstride, (const u64*)scal, (const u8*)w,
+        (const u64*)grid, mode);
     return (int)cudaGetLastError();
 }
 
@@ -797,6 +937,17 @@ void fhe_four_step_fit(int R, int C, int* out) {
     out[2] = f.rows ? (int)four_step_smem(R, C, f) : 0;
 }
 
+// kernel 9's batch at sides K, J: rows, grid staged, input staged,
+// shared-memory bytes (all 0: K, J is refused)
+void fhe_four_step_phase_fit(int K, int J, int* out) {
+    const PhaseFit f = kernel_side(K) && kernel_side(J) ? phase_fit(K, J)
+                                                        : PhaseFit{0, 0, 0};
+    out[0] = f.rows;
+    out[1] = f.grid_staged;
+    out[2] = f.in_staged;
+    out[3] = f.rows ? (int)phase_smem(K, J, f) : 0;
+}
+
 int fhe_four_step_ntt(const void* in, void* out, long long rows, int L, int R,
                       int C, long long in_gstride, const void* scal,
                       const void* w_r, const void* w_c, const void* grid,
@@ -808,21 +959,14 @@ int fhe_four_step_ntt(const void* in, void* out, long long rows, int L, int R,
                                   w_r, w_c, grid, grid_s, stream);
 }
 
+// mode 0 none, 1 pre, 2 post; scal: fold_scalars; w: the packed weights
+// (L, weight_bytes(K)); grid: (L, K, J) words (mode 0: unused)
 int fhe_four_step_phase(const void* in, void* out, long long rows, int L,
                         int K, int J, long long in_gstride, const void* scal,
-                        const void* w, const void* grid, const void* grid_s,
-                        int mode, void* stream) {
-    if (!kernel_side(K) || !kernel_side(J) || mode < 0 || mode > 2
-            || (mode != 0 && (grid == nullptr || grid_s == nullptr)))
-        return (int)cudaErrorInvalidValue;
-    const long long smem = (long long)FS_NDIG * J * (K + FS_PAD);
-    const int rc = prepare_launch(four_step_phase_kernel, smem, rows, L);
-    if (rc != (int)cudaSuccess || rows == 0) return rc;
-    four_step_phase_kernel<<<(unsigned)rows, FS_THREADS, (size_t)smem,
-                             (cudaStream_t)stream>>>(
-        (const u64*)in, (u64*)out, L, K, J, in_gstride, (const u64*)scal,
-        (const u8*)w, (const u64*)grid, (const u64*)grid_s, mode);
-    return (int)cudaGetLastError();
+                        const void* w, const void* grid, int mode,
+                        void* stream) {
+    return launch_phase(in, out, rows, L, K, J, in_gstride, scal, w, grid,
+                        mode, stream);
 }
 
 }  // extern "C"

@@ -71,19 +71,21 @@ def _set_argtypes(lib) -> None:
     lib.fhe_ntt_inverse.argtypes = [vp, vp, ll, i, i, ll, vp, vp, vp, vp, vp,
                                     vp]
     lib.fhe_ntt_inverse.restype = i
-    # four_step.cu: in, out, rows, L, R, C, group stride, limb scalars
-    # (scalars40), the r- and c-product weights (fragment order), grid and
-    # its beta = 40 Shoup words, inverse, stream; the batch geometry at R, C
+    # four_step.cu: in, out, rows, L, R, C, group stride, fold scalars, the
+    # r- and c-product weights (packed), grid and its beta = 40 Shoup words,
+    # inverse, stream; the batch geometry at R, C
     lib.fhe_four_step_ntt.argtypes = [vp, vp, ll, i, i, i, ll, vp, vp, vp, vp,
                                       vp, i, vp]
     lib.fhe_four_step_ntt.restype = i
     lib.fhe_four_step_fit.argtypes = [i, i, ctypes.POINTER(i)]
     lib.fhe_four_step_fit.restype = None
-    # in, out, rows, L, K, J, group stride, limb scalars, digit planes, grid
-    # and its Shoup words (None for mode 0), mode, stream
+    # in, out, rows, L, K, J, group stride, fold scalars, packed weights,
+    # grid words (None for mode 0), mode, stream; the batch geometry at K, J
     lib.fhe_four_step_phase.argtypes = [vp, vp, ll, i, i, i, ll, vp, vp, vp,
-                                        vp, i, vp]
+                                        i, vp]
     lib.fhe_four_step_phase.restype = i
+    lib.fhe_four_step_phase_fit.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.fhe_four_step_phase_fit.restype = None
 
 
 def load_library(verbose: bool = False):

@@ -58,10 +58,15 @@ from .ntt import _group_stride, _check_input
 NDIG = 5                       # base-256 digits of a residue below 2^40
 KERNEL_SIDES = (16, 32, 64, 128)   # R and C the kernels take
 DEFAULT_C = 64                 # the row length C of FourStepNtt's split
-# csrc/four_step.cu's shared-memory budget for kernel 8 (FS_MAX_SMEM,
-# FS_BARRIER_BYTES, FS_MAX_ROWS); ``kernel_fit`` mirrors ``four_step_fit``
-# and the wrapper holds the two together at first launch
+# csrc/four_step.cu's shared-memory budget for kernels 8 and 9
+# (FS_MAX_SMEM, FS_BARRIER_BYTES, FS_MAX_ROWS); ``kernel_fit`` and
+# ``phase_fit`` mirror ``four_step_fit`` and ``phase_fit`` there, and the
+# wrappers hold them together at first launch
 MAX_SMEM, BARRIER_BYTES, MAX_ROWS = 232448, 16, 4
+# an SM's shared memory and what the card keeps of it for each block
+# (FS_SM_SMEM, FS_BLOCK_RESERVED): kernel 9 fits two blocks an SM where it
+# can
+SM_SMEM, BLOCK_RESERVED = 233472, 1024
 PHASE_MODES = ("none", "pre", "post")
 
 KERNEL_NAMES = ("four_step_ntt", "four_step_intt", "four_step_phase")
@@ -193,6 +198,32 @@ def wgmma_weight_layout(K: int) -> np.ndarray:
     return out
 
 
+def weight_bytes(K: int) -> int:
+    """Bytes of one limb's packed weights at side K: NDIG planes of
+    64 * ceil(K / 64) rows of depth max(K, 32)."""
+    return NDIG * (-(-K // 64) * 64) * max(K, 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _unpack_index(K: int) -> np.ndarray:
+    """For each entry of the (NDIG, K, K) planes, its byte in the packed
+    weights."""
+    idx = wgmma_weight_layout(K)
+    src = np.empty(NDIG * K * K, dtype=np.int64)
+    src[idx[idx >= 0]] = np.nonzero(idx >= 0)[0]
+    return src
+
+
+def unpack_wgmma(packed: torch.Tensor, K: int) -> torch.Tensor:
+    """(L, weight_bytes(K)) packed weights -> (L, NDIG, K, K) uint8
+    planes W[d][i][k], read back through ``wgmma_weight_layout``."""
+    if packed.dim() != 2 or packed.shape[1] != weight_bytes(K):
+        raise ValueError(f"packed weights of side {K} are (L, "
+                         f"{weight_bytes(K)}), got {tuple(packed.shape)}")
+    src = torch.from_numpy(_unpack_index(K)).to(packed.device)
+    return packed[:, src].reshape(-1, NDIG, K, K)
+
+
 def pack_wgmma(planes: np.ndarray) -> np.ndarray:
     """(L, NDIG, K, K) uint8 planes -> (L, bytes) in
     ``wgmma_weight_layout``, contiguous."""
@@ -212,8 +243,7 @@ def kernel_fit(R: int, C: int):
     that fits (R = C = 128) or a side is not one the kernel takes."""
     if R not in KERNEL_SIDES or C not in KERNEL_SIDES:
         return 0, 0, 0
-    fixed = BARRIER_BYTES + sum(NDIG * (-(-K // 64) * 64) * max(K, 32)
-                                for K in (R, C))
+    fixed = BARRIER_BYTES + weight_bytes(R) + weight_bytes(C)
     slot = NDIG * (max(C, 32) * max(R, 32) + max(R, 32) * max(C, 32))
     rows = min(MAX_ROWS, (MAX_SMEM - fixed) // (slot + 8 * R * C))
     if rows >= 1:
@@ -221,6 +251,31 @@ def kernel_fit(R: int, C: int):
     if fixed + slot <= MAX_SMEM:
         return 1, 0, fixed + slot
     return 0, 0, 0
+
+
+def phase_fit(K: int, J: int):
+    """(rows a batch, grid staged, input staged, shared-memory bytes) of
+    kernel 9 at sides K, J, as ``phase_fit`` in csrc/four_step.cu: in the
+    shared memory of one of two blocks an SM, else of one block; with the
+    limb's grid words (8KJ bytes), else without; with an 8KJ-byte input
+    staging buffer a row, else without; beside the weights
+    (``weight_bytes(K)``), as many rows as fit (up to MAX_ROWS), each with
+    its operand's digit planes (max(J, 32) columns of depth max(K, 32)): the
+    first of these that holds a row.  (0, 0, 0, 0) for a side the kernel
+    does not take."""
+    if K not in KERNEL_SIDES or J not in KERNEL_SIDES:
+        return 0, 0, 0, 0
+    words = 8 * K * J
+    for blocks in (2, 1):
+        budget = min(MAX_SMEM, SM_SMEM // blocks - BLOCK_RESERVED)
+        for grid_staged in (1, 0):
+            for in_staged in (1, 0):
+                fixed = BARRIER_BYTES + weight_bytes(K) + grid_staged * words
+                row = NDIG * max(J, 32) * max(K, 32) + in_staged * words
+                rows = min(MAX_ROWS, (budget - fixed) // row)
+                if rows >= 1:
+                    return rows, grid_staged, in_staged, fixed + rows * row
+    return 0, 0, 0, 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,23 +303,20 @@ class MxuNttTables:
     diag_left: bool              # always True: the form the port takes
     pow_dig: torch.Tensor        # (L, 2*NDIG-1, 1, 1): 256^s mod p
     pow_dig_shoup: torch.Tensor
-    # the kernels' layouts
-    B0_dig: torch.Tensor         # (L, NDIG, C, C) uint8, B0[i, c] at [i, c]
-    B0i_dig: torch.Tensor
-    scalars: torch.Tensor        # (L, 4): p, mu, 256^NDIG mod p, Shoup word
-    TT: torch.Tensor             # (L, C, R) = T transposed, for ``phase``
-    TT_shoup: torch.Tensor
-    TiT: torch.Tensor            # (L, C, R) = Ti transposed
-    TiT_shoup: torch.Tensor
-    # kernel 8's: the weights in ``wgmma_weight_layout``, (L, bytes) uint8;
-    # the grids' beta = 40 Shoup words floor(w * 2^40 / p); `fold_scalars`
-    # (L, 4): p, c32 = 2^32 mod p, floor(c32 * 2^52 / p), floor(2^52 / p)
+    # the kernels' layouts: the weights in ``wgmma_weight_layout``,
+    # (L, weight_bytes) uint8; the grids T and Ti also transposed (the
+    # two-launch form's "pre" and "post" grids; Ti's is kernel 8's inverse
+    # grid), kernel 8's grids with their beta = 40 Shoup words
+    # floor(w * 2^40 / p); `fold_scalars` (L, 4): p, c32 = 2^32 mod p,
+    # floor(c32 * 2^52 / p), floor(2^52 / p)
     A_wg: torch.Tensor
     B0_wg: torch.Tensor
     Ai_wg: torch.Tensor
     B0i_wg: torch.Tensor
     T_shoup40: torch.Tensor      # (L, R, C)
-    TiT_shoup40: torch.Tensor    # (L, C, R)
+    TT: torch.Tensor             # (L, C, R) = T transposed
+    TiT: torch.Tensor            # (L, C, R) = Ti transposed
+    TiT_shoup40: torch.Tensor
     fold_scalars: torch.Tensor
 
 
@@ -302,7 +354,8 @@ def build_mxu_tables(moduli: Sequence[int], n: int, device,
         return np.stack([_digits(m) for m in mats_])
 
     def digits(mats_):
-        return torch.from_numpy(digit_planes(mats_)).to(device)
+        return torch.from_numpy(
+            np.ascontiguousarray(digit_planes(mats_))).to(device)
 
     def packed(mats_):
         return torch.from_numpy(pack_wgmma(digit_planes(mats_))).to(device)
@@ -312,32 +365,24 @@ def build_mxu_tables(moduli: Sequence[int], n: int, device,
     pows = np.array([[pow(256, s, p) for s in range(2 * NDIG - 1)]
                      for p in moduli], dtype=np.uint64)[..., None, None]
     pows_s = shoup_precompute(pows, p_col[:, :, None, None])
-    mu = barrett_mu(p_col)
-    scalars = np.concatenate([p_col, mu, pows[:, NDIG, 0], pows_s[:, NDIG, 0]],
-                             axis=1)
     fold_scalars = np.array([[p, (1 << 32) % p, (((1 << 32) % p) << 52) // p,
                               (1 << 52) // p] for p in moduli],
                             dtype=np.uint64)
-    B0_dig = digits([m[1] for m in mats])
-    B0i_dig = digits([m[4] for m in mats])
     TiT = Ti.transpose(0, 2, 1)
     return MxuNttTables(
-        n=n, R=R, C=C, p=_dev(p_col, device), mu=_dev(mu, device),
+        n=n, R=R, C=C, p=_dev(p_col, device),
+        mu=_dev(barrett_mu(p_col), device),
         A_dig=digits([m[0] for m in mats]),
-        B0T_dig=B0_dig.transpose(-1, -2).contiguous(),
+        B0T_dig=digits([m[1].T for m in mats]),
         T=_dev(T, device), T_shoup=_dev(T_s, device),
-        Ai_dig=digits(Ai), B0iT_dig=B0i_dig.transpose(-1, -2).contiguous(),
+        Ai_dig=digits(Ai), B0iT_dig=digits([m[4].T for m in mats]),
         Ti=_dev(Ti, device), Ti_shoup=_dev(Ti_s, device),
         diag_left=True,
         pow_dig=_dev(pows, device), pow_dig_shoup=_dev(pows_s, device),
-        B0_dig=B0_dig, B0i_dig=B0i_dig, scalars=_dev(scalars, device),
-        TT=_dev(T.transpose(0, 2, 1), device),
-        TT_shoup=_dev(T_s.transpose(0, 2, 1), device),
-        TiT=_dev(TiT, device),
-        TiT_shoup=_dev(Ti_s.transpose(0, 2, 1), device),
         A_wg=packed([m[0] for m in mats]), B0_wg=packed([m[1] for m in mats]),
         Ai_wg=packed(Ai), B0i_wg=packed([m[4] for m in mats]),
         T_shoup40=_dev(shoup40_precompute(T, grid), device),
+        TT=_dev(T.transpose(0, 2, 1), device), TiT=_dev(TiT, device),
         TiT_shoup40=_dev(shoup40_precompute(TiT, grid), device),
         fold_scalars=_dev(fold_scalars, device),
     )
@@ -402,21 +447,25 @@ def _check_mode(mode: str, grid) -> None:
     if (grid is None) != (mode == "none"):
         raise ValueError(f"phase: mode {mode!r} "
                          + ("takes no grid" if mode == "none"
-                            else "needs a grid (words, Shoup words)"))
+                            else "needs a grid (its words)"))
 
 
 def phase_plain(x: torch.Tensor, weights: torch.Tensor, grid, mode: str,
                 tb: MxuNttTables) -> torch.Tensor:
     """One digit-matrix product W @ X mod p over (..., L, K, J), with the
     grid's words multiplied in before it ("pre"), after it ("post") or not
-    at all ("none").  weights: (L, NDIG, K, K) uint8; grid: None or a pair
-    (words, Shoup words) of (L, K, J)."""
+    at all ("none").  weights: W packed as the kernel takes it,
+    (L, weight_bytes(K)) uint8 (``A_wg``, ``B0_wg``, ``Ai_wg``, ``B0i_wg``),
+    read back through ``wgmma_weight_layout``; grid: None or its canonical
+    words (L, K, J) (``T``, ``TT``, ``TiT``).  The kernel keeps no Shoup
+    words: its grid product is an exact FP64 Barrett product from the word
+    alone, so the grid costs 8 bytes a word."""
     _check_mode(mode, grid)
     p = tb.p[..., None]
     if mode == "pre":
-        x = mulmod(x, grid[0], p)
-    out = _digit_matmul(weights, x, tb)
-    return mulmod(out, grid[0], p) if mode == "post" else out
+        x = mulmod(x, grid, p)
+    out = _digit_matmul(unpack_wgmma(weights, x.shape[-2]), x, tb)
+    return mulmod(out, grid, p) if mode == "post" else out
 
 
 # ======================================================================
@@ -449,18 +498,22 @@ _fit_checked = False
 
 
 def _check_library_fit(lib) -> None:
-    """Once: the library's batch geometry is ``kernel_fit``'s."""
+    """Once: the library's batch geometry is ``kernel_fit``'s and
+    ``phase_fit``'s."""
     global _fit_checked
     if _fit_checked:
         return
-    for R in KERNEL_SIDES:
-        for C in KERNEL_SIDES:
-            got = (ctypes.c_int * 3)()
-            lib.fhe_four_step_fit(R, C, got)
-            if tuple(got) != kernel_fit(R, C):
-                raise RuntimeError(
-                    f"four_step: the library's batch at R = {R}, C = {C} is "
-                    f"{tuple(got)}, kernel_fit gives {kernel_fit(R, C)}")
+    for entry, fit in ((lib.fhe_four_step_fit, kernel_fit),
+                       (lib.fhe_four_step_phase_fit, phase_fit)):
+        for a in KERNEL_SIDES:
+            for b in KERNEL_SIDES:
+                want = fit(a, b)
+                got = (ctypes.c_int * len(want))()
+                entry(a, b, got)
+                if tuple(got) != want:
+                    raise RuntimeError(
+                        f"four_step: the library's batch at sides {a}, {b} "
+                        f"is {tuple(got)}, {fit.__name__} gives {want}")
     _fit_checked = True
 
 
@@ -525,14 +578,13 @@ def phase(x: torch.Tensor, weights: torch.Tensor, grid, mode: str,
     _check_input(name, x, tb.p.device, (L, K, J))
     check_sides(name, K, J)
     if (weights.dtype != torch.uint8 or weights.device != x.device
-            or tuple(weights.shape) != (L, NDIG, K, K)
+            or tuple(weights.shape) != (L, weight_bytes(K))
             or not weights.is_contiguous()):
-        raise ValueError(f"{name}: weights must be contiguous uint8 "
-                         f"({L}, {NDIG}, {K}, {K}) on {x.device}")
-    if grid is not None and any(
-            g.dtype != torch.int64 or g.device != x.device
-            or tuple(g.shape) != (L, K, J) or not g.is_contiguous()
-            for g in grid):
+        raise ValueError(f"{name}: weights must be packed, contiguous uint8 "
+                         f"({L}, {weight_bytes(K)}) on {x.device}")
+    if grid is not None and (
+            grid.dtype != torch.int64 or grid.device != x.device
+            or tuple(grid.shape) != (L, K, J) or not grid.is_contiguous()):
         raise ValueError(f"{name}: grid words must be contiguous int64 "
                          f"({L}, {K}, {J}) on {x.device}")
     try:
@@ -542,13 +594,14 @@ def phase(x: torch.Tensor, weights: torch.Tensor, grid, mode: str,
                          f"got strides {tuple(x.stride())}") from None
     stride = _group_stride(flat, name, L, K * J)
     lib = build.load_library()
+    _check_library_fit(lib)
     out = torch.empty(x.shape, dtype=torch.int64, device=x.device)
     rows = math.prod(x.shape[:-2])
-    g, gs = (grid[0].data_ptr(), grid[1].data_ptr()) if grid else (None, None)
     with torch.cuda.device(x.device):
         rc = lib.fhe_four_step_phase(
             x.data_ptr(), out.data_ptr(), rows, L, K, J, stride,
-            tb.scalars.data_ptr(), weights.data_ptr(), g, gs,
+            tb.fold_scalars.data_ptr(), weights.data_ptr(),
+            None if grid is None else grid.data_ptr(),
             PHASE_MODES.index(mode), _stream(x))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
@@ -566,18 +619,18 @@ def ntt_two_launch(x: torch.Tensor, tb: MxuNttTables) -> torch.Tensor:
     ("none"), a transpose, the c-product with the grid before it ("pre"), a
     transpose back.  The transposes are torch copies, as the reference
     leaves them to XLA."""
-    y = phase(_matrices(x, tb), tb.A_dig, None, "none", tb)
-    zt = phase(y.transpose(-1, -2).contiguous(), tb.B0_dig,
-               (tb.TT, tb.TT_shoup), "pre", tb)
+    y = phase(_matrices(x, tb), tb.A_wg, None, "none", tb)
+    zt = phase(y.transpose(-1, -2).contiguous(), tb.B0_wg, tb.TT, "pre",
+               tb)
     return zt.transpose(-1, -2).reshape(x.shape)
 
 
 def intt_two_launch(x: torch.Tensor, tb: MxuNttTables) -> torch.Tensor:
     """Inverse transform in two launches: the c-product with the grid after
     it ("post") on the transposed matrices, a transpose, the r-product."""
-    zt = phase(_matrices(x, tb).transpose(-1, -2).contiguous(), tb.B0i_dig,
-               (tb.TiT, tb.TiT_shoup), "post", tb)
-    out = phase(zt.transpose(-1, -2).contiguous(), tb.Ai_dig, None, "none",
+    zt = phase(_matrices(x, tb).transpose(-1, -2).contiguous(), tb.B0i_wg,
+               tb.TiT, "post", tb)
+    out = phase(zt.transpose(-1, -2).contiguous(), tb.Ai_wg, None, "none",
                 tb)
     return out.view(x.shape)
 

@@ -24,7 +24,6 @@ from fhe_precompiles_tpu_torch.ops import four_step as fs
 from fhe_precompiles_tpu_torch.ops import ntt as tn
 from fhe_precompiles_tpu_torch.ops import tail
 from fhe_precompiles_tpu_torch.ops.engine import TorchEngine, check_card_limits
-from fhe_precompiles_tpu_torch.ops.modmath import shoup_precompute
 from fhe_precompiles_tpu_torch.params import (BENCH_N8192, TESTNET_ONE,
                                               Params, ntt_friendly_primes)
 
@@ -77,11 +76,15 @@ def _equal_tables(port, ref):
         want = np.asarray(getattr(ref, name)).astype(np.float32)
         assert np.array_equal(got.numpy().astype(np.float32), want), name
     # the kernels' layouts hold the same numbers
-    assert torch.equal(port.B0_dig, port.B0T_dig.transpose(-1, -2))
-    assert torch.equal(port.B0i_dig, port.B0iT_dig.transpose(-1, -2))
+    R, C = port.R, port.C
+    assert torch.equal(fs.unpack_wgmma(port.A_wg, R), port.A_dig)
+    assert torch.equal(fs.unpack_wgmma(port.Ai_wg, R), port.Ai_dig)
+    assert torch.equal(fs.unpack_wgmma(port.B0_wg, C),
+                       port.B0T_dig.transpose(-1, -2))
+    assert torch.equal(fs.unpack_wgmma(port.B0i_wg, C),
+                       port.B0iT_dig.transpose(-1, -2))
     assert torch.equal(port.TT, port.T.transpose(-1, -2))
-    assert torch.equal(port.TiT_shoup, port.Ti_shoup.transpose(-1, -2))
-    assert torch.equal(port.scalars[:, 2], port.pow_dig[:, fs.NDIG, 0, 0])
+    assert torch.equal(port.TiT, port.Ti.transpose(-1, -2))
 
 
 def test_tables_equal_jax_package_q_bsk_4096(one_all):
@@ -154,19 +157,18 @@ def test_folded_inverse_equals_butterfly_fold(fused):
 @pytest.mark.parametrize("mode", fs.PHASE_MODES)
 def test_phase_equals_python_integers(mode):
     """One product W @ X mod p over 16 x 32 matrices, the grid before, after
-    or not at all, against Python integers."""
+    or not at all, against Python integers.  The weights go in packed as the
+    kernel takes them, the grid as its words."""
     tb = fs.build_mxu_tables(MODS, 512, "cpu", C=16)       # R = 32
     rng = np.random.default_rng(35)
     K, J = 16, 32
     x = _rand(rng, (2,), MODS, K * J).reshape(2, len(MODS), K, J)
     w = _rand(rng, (), MODS, K * K).reshape(len(MODS), K, K)
     g = _rand(rng, (), MODS, K * J).reshape(len(MODS), K, J)
-    w_dig = torch.from_numpy(np.stack([fs._digits(m) for m in w]))
-    grid = None
-    if mode != "none":
-        p_col = np.array(MODS, dtype=np.uint64).reshape(-1, 1, 1)
-        grid = (_t(g), _t(shoup_precompute(g, p_col)))
-    got = _np(fs.phase(_t(x), w_dig, grid, mode, tb))
+    packed = torch.from_numpy(
+        fs.pack_wgmma(np.stack([fs._digits(m) for m in w])))
+    grid = None if mode == "none" else _t(g)
+    got = _np(fs.phase(_t(x), packed, grid, mode, tb))
     for li, p in enumerate(MODS):
         wl = w[li].astype(object)
         gl = g[li].astype(object)
@@ -278,8 +280,10 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     fs.reset_launch_counts()
     for call in (lambda: fs.ntt(meta(1, 3, 256), tb),
                  lambda: fs.intt(meta(2, 3, 256), tb),
-                 lambda: fs.phase(meta(1, 3, 16, 16), tb.A_dig, None, "none",
-                                  tb)):
+                 lambda: fs.phase(meta(1, 3, 16, 16), tb.A_wg, None, "none",
+                                  tb),
+                 lambda: fs.phase(meta(1, 3, 16, 16), tb.B0_wg, tb.TT,
+                                  "pre", tb)):
         with pytest.raises(ValueError, match="no kernel for a tensor"):
             call()
     assert not any(fs.launch_counts.values())
@@ -294,11 +298,13 @@ def test_kernel_sides_and_modes_are_checked():
     tb = fs.build_mxu_tables(MODS, 256, "cpu", C=16)
     x = torch.zeros((1, 3, 16, 16), dtype=torch.int64)
     with pytest.raises(ValueError, match="mode must be one of"):
-        fs.phase(x, tb.A_dig, None, "middle", tb)
+        fs.phase(x, tb.A_wg, None, "middle", tb)
     with pytest.raises(ValueError, match="takes no grid"):
-        fs.phase(x, tb.A_dig, (tb.T, tb.T_shoup), "none", tb)
+        fs.phase(x, tb.A_wg, tb.T, "none", tb)
     with pytest.raises(ValueError, match="needs a grid"):
-        fs.phase(x, tb.A_dig, None, "pre", tb)
+        fs.phase(x, tb.A_wg, None, "pre", tb)
+    with pytest.raises(ValueError, match="packed weights"):
+        fs.phase(x, tb.A_dig, None, "none", tb)
     with pytest.raises(ValueError, match="not R \\* C"):
         fs.build_mxu_tables(MODS, 256, "cpu", C=48)
 
@@ -339,8 +345,10 @@ def test_wgmma_layout_reads_back_planes(case, one_all):
                                                      "cpu"),
           "non-square 512": lambda: fs.build_mxu_tables(MODS, 512, "cpu",
                                                         C=16)}[case]()
-    for packed, planes in ((tb.A_wg, tb.A_dig), (tb.B0_wg, tb.B0_dig),
-                           (tb.Ai_wg, tb.Ai_dig), (tb.B0i_wg, tb.B0i_dig)):
+    for packed, planes in ((tb.A_wg, tb.A_dig),
+                           (tb.B0_wg, tb.B0T_dig.transpose(-1, -2)),
+                           (tb.Ai_wg, tb.Ai_dig),
+                           (tb.B0i_wg, tb.B0iT_dig.transpose(-1, -2))):
         K = planes.shape[-1]
         idx = fs.wgmma_weight_layout(K)
         assert packed.dtype == torch.uint8 and packed.shape[1] == idx.size
@@ -469,6 +477,127 @@ def test_kernel8_steps_emulated_match_plain(case, one_all):
     worst = _group_sums(ones, np.full((128, 8), (1 << 40) - 1,
                                       dtype=np.uint64))
     assert max(int(s.max()) for s in worst) == 5 * 255 ** 2 * 128 < 1 << 26
+
+
+def _grid_product(a: np.ndarray, w: np.ndarray, p: int) -> np.ndarray:
+    """csrc/four_step.cu grid_mul_w on integers: h = a w rounded to the
+    nearest double, q = floor(h * rinv) - 1 with rinv = 1 / p rounded (the
+    fma's product exact), asserted within one of floor(a w / p) - 1
+    (a < 1.5p), r = a w - q p asserted in [0, 3p), then two conditional
+    subtracts."""
+    rn, rd = (1.0 / p).as_integer_ratio()
+    out = np.empty(a.shape, dtype=object)
+    for at, (ai, wi) in enumerate(zip(a.flat, w.flat)):
+        prod = int(ai) * int(wi)
+        assert int(ai) < 3 * p // 2 and int(wi) < p
+        hn, hd = float(prod).as_integer_ratio()
+        q = hn * rn // (hd * rd) - 1
+        assert q < 1 << 52 and abs(q - (prod // p - 1)) <= 1
+        r = prod - q * p
+        assert 0 <= r < 3 * p
+        out.flat[at] = r - 2 * p if r >= 2 * p else r - p if r >= p else r
+    return out
+
+
+def _emulate_phase(x: np.ndarray, packed, grid, mode: str, tb) -> np.ndarray:
+    """Kernel 9 on (rows, L, K, J) from its own tables: the weights as read
+    through the layout, fold_scalars, the grid's words; "pre" multiplies
+    each canonical input word by its grid word, the product is kernel 8's (a
+    lazy value below 1.5p), then "post" takes the grid product and the
+    other modes one conditional subtract."""
+    K = x.shape[-2]
+    out = np.empty_like(x)
+    for li in range(x.shape[1]):
+        p, c32, c32s, pinv = (int(v) for v in _np(tb.fold_scalars[li]))
+        w = _weights_from_layout(packed[li].numpy(), K)
+        g = None if grid is None else _np(grid[li])
+        for b in range(x.shape[0]):
+            m = x[b, li]
+            if mode == "pre":
+                m = _grid_product(m, g, p).astype(np.uint64)
+            y = _kernel8_product(w, m, K, p, c32, c32s, pinv)
+            y = _grid_product(y, g, p) if mode == "post" else _csub(y, p)
+            assert np.all(y < p)
+            out[b, li] = y.astype(np.uint64)
+    return out
+
+
+@pytest.mark.parametrize("mode", fs.PHASE_MODES)
+@pytest.mark.parametrize("case", ["testnet.one 64 x 64", "16 x 32"])
+def test_phase_kernel_steps_emulated_match_plain(case, mode, one_all):
+    """Kernel 9's arithmetic replayed on integers from its own tables, each
+    bound its comments state asserted (the grid products, and those of
+    ``_kernel8_product``), against ``phase_plain`` and against Python
+    integers: the two-launch forward's "pre" shape (B0, T transposed) and
+    A's none / post.  Rows: random, every residue p - 1, all zeros."""
+    if case == "testnet.one 64 x 64":
+        mods, tb = ALL, one_all[0]
+    else:
+        mods, tb = MODS, fs.build_mxu_tables(MODS, 512, "cpu", C=16)
+    packed, grid = (tb.B0_wg, tb.TT) if mode == "pre" else (tb.A_wg, tb.T)
+    K, J = grid.shape[1:]
+    if mode == "none":
+        grid = None
+    x = _rand(np.random.default_rng(38), (3,), mods, K * J)
+    x[1] = np.array(mods, dtype=np.uint64)[:, None] - np.uint64(1)
+    x[2] = 0
+    x = x.reshape(3, len(mods), K, J)
+    got = _emulate_phase(x, packed, grid, mode, tb)
+    assert np.array_equal(got, _np(fs.phase_plain(_t(x), packed, grid, mode,
+                                                  tb)))
+    w = fs.unpack_wgmma(packed, K).numpy()
+    for li, p in enumerate(mods):
+        wl = sum(w[li, d].astype(object) << (8 * d) for d in range(fs.NDIG))
+        g = None if grid is None else _np(grid[li]).astype(object)
+        for b in range(3):
+            xl = x[b, li].astype(object)
+            want = wl.dot(xl * g % p if mode == "pre" else xl) % p
+            if mode == "post":
+                want = want * g % p
+            assert np.array_equal(got[b, li], want.astype(np.uint64))
+
+
+def test_phase_pre_equals_pallas_phase_interpret():
+    """The forward's second launch, mode "pre" (B0 @ (T^T (*) Y^T)), against
+    the Pallas kernel it replaces, ``PallasNtt._phase`` in interpret mode, on
+    the same (C, R) matrices: one interpreted launch."""
+    from fhe_precompiles_tpu.ops.pallas_ntt import PallasNtt
+    pn = PallasNtt(MODS, 256, C=16, tb=4, interpret=True, fused=False)
+    tb = fs.build_mxu_tables(MODS, 256, "cpu", C=16)
+    L, C, R, B = len(MODS), tb.C, tb.R, 4
+    x = _rand(np.random.default_rng(39), (B,), MODS, C * R).reshape(B, L, C,
+                                                                     R)
+    lo, hi = pn._to_pairs(jnp.asarray(
+        x.transpose(1, 2, 0, 3).reshape(L, C, B * R)))
+    out = pn._from_pairs(*pn._phase("pre", pn.b0_stack, pn.tT_pair,
+                                    pn.tsT_pair, lo, hi, C, C, R, B))
+    want = np.asarray(out, dtype=np.uint64).reshape(L, C, B, R
+                                                    ).transpose(2, 0, 1, 3)
+    got = fs.phase(_t(x), tb.B0_wg, tb.TT, "pre", tb)
+    assert np.array_equal(_np(got), want)
+
+
+def test_phase_fit_launches_every_side_pair():
+    """``phase_fit`` (held against the library's ``fhe_four_step_phase_fit``
+    at first launch) gives kernel 9 a batch at all 16 side pairs: at least
+    one row, as many as fit up to MAX_ROWS, within the shared memory of one
+    of two blocks an SM where the grid and one staged row fit there (the
+    main shape, 64 x 64), else of one block."""
+    two_blocks = fs.SM_SMEM // 2 - fs.BLOCK_RESERVED
+    for K in fs.KERNEL_SIDES:
+        for J in fs.KERNEL_SIDES:
+            rows, grid_staged, in_staged, smem = fs.phase_fit(K, J)
+            row = fs.NDIG * max(J, 32) * max(K, 32) + in_staged * 8 * K * J
+            fixed = (fs.BARRIER_BYTES + fs.weight_bytes(K)
+                     + grid_staged * 8 * K * J)
+            budget = two_blocks if smem <= two_blocks else fs.MAX_SMEM
+            assert 1 <= rows <= fs.MAX_ROWS
+            assert smem == fixed + rows * row <= budget
+            assert rows == fs.MAX_ROWS or smem + row > budget
+    assert fs.phase_fit(64, 64) == (1, 1, 1, 106512)
+    assert fs.phase_fit(128, 64) == (2, 1, 0, 229392)
+    assert fs.phase_fit(128, 128) == (1, 0, 0, 163856)
+    assert fs.phase_fit(64, 24) == (0, 0, 0, 0)
 
 
 def _wide(n: int, count: int) -> BfvContext:
