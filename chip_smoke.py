@@ -11,45 +11,55 @@ the card -> multiply + relinearize -> decrypt on the card, with the
 elementwise operations beside it, on the default engine (butterfly NTT);
 then the same multiply and round trip on the four-step engine
 (``ntt_backend="four_step"``) and the four-step transform in its two-launch
-form.  Before that it builds the CUDA kernels from
-``fhe_precompiles_tpu_torch/csrc/`` and holds each of the ten (five BEHZ
-tail segments, forward and inverse butterfly NTT, forward and inverse
-four-step NTT, one four-step product) against its plain PyTorch version on
-the card (``floor_sk`` also on bench.n1024 and at ragged batches, as it has
-one instance per limb-count pair), and the four-step transforms against the
-butterfly kernels too (exact integer arithmetic: the tolerance is 0, every
-word must be equal).
+form; then the system's entry point, the 49 byte-level precompiles through
+``FheApp(TESTNET_ONE, engine="torch")`` on the card against the port's
+golden ``FheApp``, with a dozen invalid inputs, the launch counters of every
+call and the host time of a call by op class. Before that it builds the CUDA
+kernels from ``fhe_precompiles_tpu_torch/csrc/`` and holds each of the ten
+(five BEHZ tail segments, forward and inverse butterfly NTT, forward and
+inverse four-step NTT, one four-step product) against its plain PyTorch
+version on the card (``floor_sk`` also on bench.n1024 and at ragged batches,
+as it has one instance per limb-count pair), and the four-step transforms
+against the butterfly kernels too (exact integer arithmetic: the tolerance
+is 0, every word must be equal).
 
 Phases, one JSON line each: device, build, kernels, main_path, round_trip,
-timing, four_step_path.  Any failure ends the run with a non-zero exit code
-and without the last line.  Then, in this order: the card's name and power
-limit as ``nvidia-smi`` gives them, one ``{"kernels": [...]}`` line (per
-kernel: launches counted during its path's run and during its round trip,
-error against the plain version, measured times, and the least time the
-card could take, with its bytes and operations terms; ``ms`` is taken with
-the inputs cold in the cache and is the time ``bound_ms`` is held against,
-``same_buffers_ms`` repeats one input set, ``path_ms`` is one call inside
-``_mul_relin``, for the NTTs the call of the shape that ``ms`` was taken at,
-for the four-step product its launch inside the two-launch transform), and
-the last line
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+timing, four_step_path, app (with the zstd codec that ran: ``zstandard``, or
+the machine's libzstd through ctypes where ``zstandard`` does not import).
+Any failure ends the run with a non-zero exit code and without the last
+line. Then, in this order: the card's name and power limit as ``nvidia-smi``
+gives them, one ``{"kernels": [...]}`` line (per kernel: launches counted
+during its path's run, during its round trip and during the 49 precompile
+calls of phase app, error against the plain version, measured times, and the
+least time the card could take, with its bytes and operations terms; ``ms``
+is taken with the inputs cold in the cache and is the time ``bound_ms`` is
+held against, ``same_buffers_ms`` repeats one input set, ``path_ms`` is one
+call inside ``_mul_relin``, for the NTTs the call of the shape that ``ms``
+was taken at, for the four-step product its launch inside the two-launch
+transform), and the last line ``{"ok": true, "device": {"platform": "gpu",
+"kind": ..., "count": ...}}``.
 
 It imports ``fhe_precompiles_tpu_torch`` only, never JAX.
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import importlib.metadata
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
-from fhe_precompiles_tpu_torch import convert
+from fhe_precompiles_tpu_torch import FheApp, PRECOMPILE_NAMES, convert, pack
+from fhe_precompiles_tpu_torch.app import _CT_CODEC, _PK_CODEC
 from fhe_precompiles_tpu_torch.bfv import BfvContext, Ciphertext
+from fhe_precompiles_tpu_torch.encoding import PLAIN_TYPES
 from fhe_precompiles_tpu_torch.ops import build, tail, tail_cases
 from fhe_precompiles_tpu_torch.ops import four_step as fsm
 from fhe_precompiles_tpu_torch.ops import ntt as nttm
@@ -57,6 +67,11 @@ from fhe_precompiles_tpu_torch.ops.engine import TorchEngine
 from fhe_precompiles_tpu_torch.ops.modmath import csub_reduce
 from fhe_precompiles_tpu_torch.params import (BENCH_N1024, BENCH_N8192,
                                               TESTNET_ONE)
+from fhe_precompiles_tpu_torch.serialization import keyio, zstd_codec
+from fhe_precompiles_tpu_torch.serialization import zstd_probes
+from fhe_precompiles_tpu_torch.serialization.bincode import Writer
+from fhe_precompiles_tpu_torch.serialization.seal import (SealCiphertextBlob,
+                                                          compute_parms_id)
 
 BATCH = 128          # the main path's batch
 DISTINCT = 8         # distinct ciphertexts, tiled up to BATCH
@@ -109,6 +124,30 @@ ROUND_TRIP_NTT_CALLS = {
 # decrypt_batch of sizes 2 and 3
 FOUR_STEP_ROUND_TRIP_CALLS = {"four_step_ntt": 1 + 3 + 2 + 1 + 2,
                               "four_step_intt": 2 + 2 + 1 + 1 + 1}
+
+# kernel launches of one precompile call on FheApp(engine="torch"), by the
+# op class of ``app_op_class``: the engine paths of TorchEngine.mul_relin,
+# _mul_plain (forward of the plain and of the ciphertext, one inverse),
+# encrypt_batch (forward of u, inverse of u*pk0 and u*pk1) and
+# decrypt_batch at size 2; reencrypt is a decrypt and an encrypt; add and
+# sub launch no kernel
+APP_CALLS = {
+    "add cc": {}, "add cp": {}, "mul cc": CALLS_PER_MUL_RELIN,
+    "mul cp": {"ntt": 2, "intt": 1}, "encrypt": {"ntt": 1, "intt": 2},
+    "reencrypt": {"ntt": 2, "intt": 3}, "decrypt": {"ntt": 1, "intt": 1},
+    "public_key_bytes": {},
+}
+# one precompile of each op class, timed on both apps
+APP_TIMED = {"add cc": "add_cipheru64_cipheru64",
+             "add cp": "add_cipheru64_u64",
+             "mul cc": "mul_cipheru64_cipheru64",
+             "mul cp": "mul_cipheru64_u64", "encrypt": "encrypt_u64",
+             "reencrypt": "reencrypt_u64", "decrypt": "decrypt_u64",
+             "public_key_bytes": "public_key_bytes"}
+SCALARS = {"u256": pack.U256, "u64": pack.U64, "i64": pack.I64,
+           "frac64": pack.FRAC64}
+# the canonical bytes pinned for the JAX package's tests (zstd 1.5.7)
+GOLDEN_HASHES = "tests/data/golden_hashes.json"
 
 CSRC = "fhe_precompiles_tpu_torch/csrc/"
 SOURCES = {name: CSRC + "tail.cu" for name in tail.KERNEL_NAMES}
@@ -1194,6 +1233,305 @@ def phase_four_step_path(eng4: TorchEngine, eng: TorchEngine, rows: dict,
             / staged_total}
 
 
+def app_op_class(name: str) -> str:
+    """The op class of precompile `name`: "add cc" (add and sub of two
+    ciphertexts), "add cp" (add and sub with one plain operand), "mul cc",
+    "mul cp", "encrypt", "reencrypt", "decrypt" or "public_key_bytes"."""
+    kind = name.partition("_")[0]
+    if kind in ("encrypt", "reencrypt", "decrypt", "public"):
+        return "public_key_bytes" if kind == "public" else kind
+    op, a_t, b_t = name.split("_")
+    shape = "cc" if a_t.startswith("cipher") and b_t.startswith(
+        "cipher") else "cp"
+    return f"{'mul' if op == 'mul' else 'add'} {shape}"
+
+
+def app_value(tname: str, x: int):
+    return float(x) if tname == "frac64" else x
+
+
+def app_calldata(golden: FheApp, user_pk, name: str) -> bytes:
+    """Valid calldata for precompile `name`, built with the port's pack and
+    golden encryptor: ciphertext operands 16 and 4 under the user's key,
+    threshold inputs 12 under the network key."""
+    ctx, prm = golden.ctx, golden.params
+    kind, _, rest = name.partition("_")
+    if name == "public_key_bytes":
+        return b""
+    if kind in ("encrypt", "reencrypt", "decrypt"):
+        scalar = SCALARS[rest]
+        if kind == "encrypt":
+            return pack.pack_two_arguments(app_value(rest, 12), scalar,
+                                           b"\x01\x02\x03", pack.BYTES)
+        ct = ctx.encrypt(PLAIN_TYPES[rest].encode(app_value(rest, 12), prm),
+                         golden.public_key,
+                         hashlib.sha512(name.encode()).digest())
+        if kind == "decrypt":
+            return pack.pack_one_argument(ct, _CT_CODEC)
+        return pack.pack_binary_operation(user_pk, ct, _CT_CODEC,
+                                          b"\x01\x02\x03", pack.BYTES)
+    _, a_t, b_t = name.split("_")
+    tname = a_t.replace("cipher", "")
+
+    def arg(tag: str, v: int, cipher: bool):
+        if not cipher:
+            return app_value(tname, v), SCALARS[tname]
+        return ctx.encrypt(PLAIN_TYPES[tname].encode(app_value(tname, v), prm),
+                           user_pk,
+                           hashlib.sha512((name + tag).encode()).digest()
+                           ), _CT_CODEC
+    a, ca = arg("a", 16, a_t.startswith("cipher"))
+    b, cb = arg("b", 4, b_t.startswith("cipher"))
+    return pack.pack_binary_operation(user_pk, a, ca, b, cb)
+
+
+def app_check_value(golden: FheApp, user_sk, name: str, out: bytes) -> None:
+    """A successful output holds 16 op 4 (add 20, sub 12, mul 64), or 12."""
+    kind, _, rest = name.partition("_")
+    if name == "public_key_bytes":
+        if out != golden.public_key_bytes():
+            raise AssertionError("public_key_bytes: not the network key")
+        return
+    if kind in ("encrypt", "reencrypt", "decrypt"):
+        tname, want = rest, 12
+    else:
+        op, a_t, _ = name.split("_")
+        tname, want = a_t.replace("cipher", ""), {"add": 20, "sub": 12,
+                                                  "mul": 64}[op]
+    if kind == "decrypt":
+        got = SCALARS[tname].deserialize(out)
+    else:
+        sk = golden.private_key if kind == "encrypt" else user_sk
+        got = PLAIN_TYPES[tname].decode(
+            golden.ctx.decrypt(Ciphertext.from_bytes(out), sk),
+            golden.params)
+    if got != app_value(tname, want):
+        raise AssertionError(f"{name}: decrypts to {got!r}, expected "
+                             f"{app_value(tname, want)!r}")
+
+
+def app_error_cases(golden: FheApp, user_keys, calldata: dict):
+    """A dozen invalid inputs (and three odd valid ones), each with the code
+    the JAX package's golden app gives it: (label, name, calldata, code)."""
+    ctx, prm = golden.ctx, golden.params
+    pk, _ = user_keys
+    k, n = len(prm.ct_moduli), prm.n
+    mul_cc = calldata["mul_cipheru64_cipheru64"]
+    a, b = pack.unpack_binary_operation(mul_cc, _PK_CODEC, _CT_CODEC,
+                                        _CT_CODEC)[1:]
+    rng = np.random.default_rng(SEED + 9)
+
+    def binary(x, y, key=pk):
+        cx = _CT_CODEC if isinstance(x, Ciphertext) else pack.BYTES
+        cy = _CT_CODEC if isinstance(y, Ciphertext) else pack.BYTES
+        return pack.pack_binary_operation(key, x, cx, y, cy)
+
+    over = a.data.copy()
+    over[1, 0, 11] = prm.ct_moduli[0]                  # == its modulus
+    w = Writer()
+    keyio.write_params(w, prm)
+    w.u64(1)
+    w.byte_vec(SealCiphertextBlob(compute_parms_id(n, prm.ct_moduli, prm.t),
+                                  False, n, k, over).to_stream())
+    over_bytes = w.getvalue()
+    size3 = ctx.multiply(a, b)
+    foreign = Ciphertext(dataclasses.replace(prm, plain_modulus=8192), a.data)
+    relinless = dataclasses.replace(pk, relin=None)
+    big = ctx.encrypt(PLAIN_TYPES["u256"].encode((1 << 200) + 5, prm),
+                      golden.public_key, b"\x07" * 64)
+    bad_offset = bytearray(mul_cc)
+    bad_offset[4:8] = (len(mul_cc) + 1).to_bytes(4, "big")
+    size0 = Ciphertext(prm, np.zeros((0, k, n), dtype=np.uint64))
+    return [
+        ("truncated calldata", "mul_cipheru64_cipheru64", mul_cc[:1000], 1),
+        ("offset past the end", "mul_cipheru64_cipheru64",
+         bytes(bad_offset), 1),
+        ("truncated offsets", "encrypt_u64", b"\x00\x00", 1),
+        ("random bytes", "mul_cipheru64_cipheru64", rng.bytes(300), 1),
+        ("random ciphertext bytes", "decrypt_u64",
+         pack.pack_one_argument(rng.bytes(400), pack.BYTES), 3),
+        ("residue equal to its modulus", "mul_cipheru64_cipheru64",
+         binary(over_bytes, b), 3),
+        ("residue equal to its modulus", "add_cipheru64_cipheru64",
+         binary(over_bytes, b), 3),
+        ("size-3 operand", "mul_cipheru64_cipheru64", binary(size3, b), 7),
+        ("foreign parameter set", "mul_cipheru64_cipheru64",
+         binary(foreign, b), 7),
+        ("foreign parameter set", "decrypt_u64",
+         pack.pack_one_argument(foreign, _CT_CODEC), 5),
+        ("key without relin keys", "mul_cipheru64_cipheru64",
+         binary(a, b, relinless), 7),
+        ("decode overflow", "decrypt_u64",
+         pack.pack_one_argument(big, _CT_CODEC), 5),
+        ("NaN plaintext", "encrypt_frac64",
+         pack.pack_two_arguments(float("nan"), pack.FRAC64, b"x",
+                                 pack.BYTES), 6),
+        ("scalar of the wrong width", "encrypt_u64",
+         pack.pack_two_arguments(b"\x01\x02\x03", pack.BYTES, b"x",
+                                 pack.BYTES), 3),
+        ("unknown name", "mul_cipheru64_cipheru65", mul_cc, 3),
+        ("size-3 operand into add", "add_cipheru64_cipheru64",
+         binary(size3, b), 0),
+        ("size-0 operand into mul cp", "mul_cipheru64_u64",
+         pack.pack_binary_operation(pk, size0, _CT_CODEC, 5, pack.U64), 0),
+        ("boundary ciphertext", "decrypt_frac64",
+         pack.pack_one_argument(boundary_ciphertext(ctx), _CT_CODEC), 0),
+    ]
+
+
+def app_pinned_hashes(app: FheApp) -> dict:
+    """sha512 of the encrypt and of the refresh (reencrypt to the network
+    key) of u256 12 with public data 010203, as ``tests/data/
+    golden_hashes.json`` pins them."""
+    enc_in = pack.pack_two_arguments(12, pack.U256, b"\x01\x02\x03",
+                                     pack.BYTES)
+    code, ct = app.call("encrypt_u256", enc_in)
+    re_in = pack.pack_binary_operation(app.public_key,
+                                       Ciphertext.from_bytes(ct), _CT_CODEC,
+                                       b"\x01\x02\x03", pack.BYTES)
+    code2, refreshed = app.call("reencrypt_u256", re_in)
+    if code or code2:
+        raise AssertionError(f"pinned-hash inputs: codes {code}, {code2}")
+    return {"encrypt_u256_12_010203": hashlib.sha512(ct).hexdigest(),
+            "refresh_u256_12_010203": hashlib.sha512(refreshed).hexdigest()}
+
+
+def app_call_ms(app: FheApp, name: str, data: bytes, reps: int):
+    """Host milliseconds of `reps` calls, each waited for on the card."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        code, _ = app.call(name, data)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if code:
+            raise AssertionError(f"timed {name}: code {code}")
+    return times
+
+
+def phase_app(torch_app: FheApp, golden: FheApp, rows: dict,
+              card: str) -> dict:
+    """The 49 precompiles through ``FheApp(TESTNET_ONE, engine="torch")`` on
+    the card and the port's golden app, on the embedded network keys and one
+    set of user keys from the script's seed: code 0 and the same bytes on
+    both, each result decrypting to its plaintext; every call with the
+    launch counters set to 0 before it and read after; a dozen invalid
+    inputs with the same code on both; the two hashes pinned in
+    ``tests/data/golden_hashes.json`` from the card.  Then the median host
+    time of a call on each app by op class, and of a ``mul`` cc on the
+    torch app split into unpack, engine and ``to_bytes``."""
+    if torch_app._engine.device.type != "cuda":
+        raise AssertionError("the torch app is not on the card")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        canonical = zstd_probes.check_python_zstd_canonical()
+    user_keys = golden.ctx.generate_keys(
+        seed=hashlib.sha512(str(SEED).encode()).digest())
+    calldata = {name: app_calldata(golden, user_keys[0], name)
+                for name in PRECOMPILE_NAMES}
+
+    totals = {name: 0 for name in KERNEL_NAMES}
+    by_class = {}
+    for name in PRECOMPILE_NAMES:
+        data = calldata[name]
+        reset_launch_counts()
+        got = torch_app.call(name, data)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = golden.call(name, data)
+        if got[0] != 0 or want[0] != 0:
+            raise AssertionError(f"{name}: code {got[0]} on the card, "
+                                 f"{want[0]} on the golden app")
+        if got[1] != want[1]:
+            raise AssertionError(f"{name}: bytes differ from the golden app")
+        app_check_value(golden, user_keys[1], name, got[1])
+        cls = app_op_class(name)
+        if counts != expected_counts(APP_CALLS[cls]):
+            raise AssertionError(f"{name}: launch counts {counts}, expected "
+                                 f"{expected_counts(APP_CALLS[cls])}")
+        by_class[cls] = {k: v for k, v in counts.items() if v}
+        for k, v in counts.items():
+            totals[k] += v
+    path = set(CALLS_PER_MUL_RELIN)
+    if any(totals[k] == 0 for k in path):
+        raise AssertionError(f"a kernel of the app path never ran: {totals}")
+    for k in path:
+        rows[k]["launches_app"] = totals[k]
+
+    errors = []
+    for label, name, data, code in app_error_cases(golden, user_keys,
+                                                   calldata):
+        reset_launch_counts()
+        got = torch_app.call(name, data)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        want = golden.call(name, data)
+        if got != want or want[0] != code:
+            raise AssertionError(
+                f"{label} ({name}): card code {got[0]}, golden code "
+                f"{want[0]}, expected {code}; bytes equal: "
+                f"{got[1] == want[1]}")
+        # a size-0 ciphertext has no rows: only the plain's transform runs
+        if label.startswith("size-0") and counts != {"ntt": 1}:
+            raise AssertionError(f"{label}: launch counts {counts}")
+        errors.append({"case": label, "name": name, "code": code,
+                       "launches": counts})
+
+    # the canonical bytes: the outputs of uniform residues compress to the
+    # pinned frames whichever zstd codec runs
+    with open(GOLDEN_HASHES) as f:
+        pinned = json.load(f)
+    got_hashes = app_pinned_hashes(torch_app)
+    for key, digest in got_hashes.items():
+        if digest != pinned[key]:
+            raise AssertionError(f"{key}: the card's bytes are not the "
+                                 "pinned canonical bytes")
+
+    ms = {"torch": {}, "golden": {}}
+    ms_all = {"torch": {}, "golden": {}}
+    for cls, name in APP_TIMED.items():
+        for label, app, reps in (("torch", torch_app, 15),
+                                 ("golden", golden, 5)):
+            times = app_call_ms(app, name, calldata[name], reps)
+            ms[label][cls] = statistics.median(times)
+            ms_all[label][cls] = times
+
+    # one mul cc on the torch app, step by step (the pk cache is warm)
+    data = calldata["mul_cipheru64_cipheru64"]
+    eng = torch_app._engine
+    split = {"unpack": [], "engine": [], "to_bytes": [], "relin_keys": []}
+    for _ in range(15):
+        t0 = time.perf_counter()
+        pk, a, b = pack.unpack_binary_operation(data, _PK_CODEC, _CT_CODEC,
+                                                _CT_CODEC)
+        t1 = time.perf_counter()
+        out = eng.mul_relin(a, b, pk.relin)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        blob = out.to_bytes()
+        t3 = time.perf_counter()
+        eng._rk(pk.relin)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            split[key].append(dt * 1e3)
+        if blob != golden.call("mul_cipheru64_cipheru64", data)[1]:
+            raise AssertionError("the split mul cc differs from the golden "
+                                 "app")
+    return {"phase": "app", "ok": True, "card": card,
+            "preset": "testnet.one", "zstd_codec": zstd_codec.codec_name(),
+            "zstd_canonical": canonical,
+            "zstd_warning": [str(w.message) for w in caught],
+            "ops_equal_to_golden": len(PRECOMPILE_NAMES),
+            "values_ok": True, "pinned_hashes_equal": sorted(got_hashes),
+            "launches_by_class": by_class,
+            "launches": totals, "errors_same_code": errors,
+            "ms_median": ms,
+            "mul_cc_split_ms_median": {k: statistics.median(v)
+                                       for k, v in split.items()},
+            "ms_all": ms_all}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1239,6 +1577,8 @@ def main() -> int:
     emit(phase_round_trip(eng, rows, keys, host_cts))
     emit(phase_timing(eng, inputs, card, rows))
     emit(phase_four_step_path(eng4, eng, rows, keys, host_cts, inputs, card))
+    emit(phase_app(FheApp(TESTNET_ONE, engine="torch"),
+                   FheApp(TESTNET_ONE, engine="golden"), rows, card))
 
     print(card, flush=True)
     emit({"kernels": [rows[name] for name in KERNEL_NAMES]})

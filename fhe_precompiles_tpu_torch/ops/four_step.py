@@ -541,7 +541,8 @@ def _launch_transform(name: str, x: torch.Tensor,
             grid.data_ptr(), grid_s.data_ptr(), int(inverse), _stream(x))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
-    launch_counts[name] += 1
+    if rows:                    # the library launches nothing for 0 rows
+        launch_counts[name] += 1
     return out
 
 
@@ -605,7 +606,8 @@ def phase(x: torch.Tensor, weights: torch.Tensor, grid, mode: str,
             PHASE_MODES.index(mode), _stream(x))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
-    launch_counts[name] += 1
+    if rows:                    # the library launches nothing for 0 rows
+        launch_counts[name] += 1
     return out
 
 

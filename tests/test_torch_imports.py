@@ -30,7 +30,11 @@ def test_every_submodule_is_listed():
     for want in ("params", "sampling", "convert", "bfv.golden", "bfv.ntt",
                  "bfv.modmath", "bfv.uint128", "ops.modmath", "ops.ntt",
                  "ops.tail", "ops.tail_cases", "ops.behz", "ops.engine",
-                 "ops.build", "ops.wide", "ops.four_step"):
+                 "ops.build", "ops.wide", "ops.four_step", "errors", "pack",
+                 "encoding", "metrics", "app", "testnet", "serialization",
+                 "serialization.bincode", "serialization.seal",
+                 "serialization.keyio", "serialization.zstd_probes",
+                 "serialization.zstd_codec"):
         assert "fhe_precompiles_tpu_torch." + want in names
 
 
@@ -64,6 +68,27 @@ def test_sources_name_no_jax_import():
     assert len(files) > 10
     for f in files:
         assert not pat.search(f.read_text()), f
+
+
+def test_no_environment_variable_chooses_engine_or_device():
+    """The caller names the engine and the device; nothing in the port reads
+    the environment but the build's search for the CUDA toolkit."""
+    import pathlib
+    import re
+    root = pathlib.Path(fhe_precompiles_tpu_torch.__file__).parent
+    files = [f for f in root.rglob("*.py")
+             if "_build" not in f.relative_to(root).parts]
+    files += [root.parent / "chip_smoke.py", root.parent / "chip_compare.py"]
+    pat = re.compile(r"\b(environ|getenv|putenv)\b")
+    reads = []
+    for f in files:
+        for line in f.read_text().splitlines():
+            if pat.search(line):
+                reads.append((f.relative_to(root.parent).as_posix(),
+                              line.strip()))
+    assert reads == [("fhe_precompiles_tpu_torch/ops/build.py",
+                      'for root in (os.environ.get("CUDA_HOME"), '
+                      'os.environ.get("CUDA_PATH"),')], reads
 
 
 def test_default_device_is_the_card_and_is_not_replaced():
