@@ -14,7 +14,13 @@ then the same multiply and round trip on the four-step engine
 form; then the system's entry point, the 49 byte-level precompiles through
 ``FheApp(TESTNET_ONE, engine="torch")`` on the card against the port's
 golden ``FheApp``, with a dozen invalid inputs, the launch counters of every
-call and the host time of a call by op class. Before that it builds the CUDA
+call and the host time of a call by op class; then a stream of 1,024
+precompile calls through the batched ``ByteServer`` (phase serve: every
+response equal to ``FheApp.call`` one at a time, the batches in the launch
+counters, requests a second, continuous mode's latency); then the C ABI
+(phase c_abi: ``libc_fhe.so`` and its C host ``host_test.c`` on the card,
+and the 49 precompiles through the library's 51 symbols by ctypes, each
+equal to ``FheApp.call`` with its launches). Before that it builds the CUDA
 kernels from ``fhe_precompiles_tpu_torch/csrc/`` and holds each of the ten
 (five BEHZ tail segments, forward and inverse butterfly NTT, forward and
 inverse four-step NTT, one four-step product) against its plain PyTorch
@@ -25,13 +31,16 @@ is 0, every word must be equal).
 
 Phases, one JSON line each: device, build, kernels, main_path, round_trip,
 timing, four_step_path, app (with the zstd codec that ran: ``zstandard``, or
-the machine's libzstd through ctypes where ``zstandard`` does not import).
+the machine's libzstd through ctypes where ``zstandard`` does not import),
+serve, c_abi.
 Any failure ends the run with a non-zero exit code and without the last
 line. Then, in this order: the card's name and power limit as ``nvidia-smi``
 gives them, one ``{"kernels": [...]}`` line (per kernel: launches counted
 during its path's run, during its round trip and during the 49 precompile
 calls of phase app, error against the plain version, measured times, and the
-least time the card could take, with its bytes and operations terms; ``ms``
+least time the card could take, with its bytes and operations terms;
+``launches_serve`` and ``launches_abi`` are the launches of phase serve's
+``ByteServer.run`` and of phase c_abi's 49 calls through the library; ``ms``
 is taken with the inputs cold in the cache and is the time ``bound_ms`` is
 held against, ``same_buffers_ms`` repeats one input set, ``path_ms`` is one
 call inside ``_mul_relin``, for the NTTs the call of the shape that ``ms``
@@ -47,16 +56,19 @@ import dataclasses
 import hashlib
 import importlib.metadata
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 
 import numpy as np
 import torch
 
-from fhe_precompiles_tpu_torch import FheApp, PRECOMPILE_NAMES, convert, pack
+from fhe_precompiles_tpu_torch import (FheApp, PRECOMPILE_NAMES, convert,
+                                       native, pack)
 from fhe_precompiles_tpu_torch.app import _CT_CODEC, _PK_CODEC
 from fhe_precompiles_tpu_torch.bfv import BfvContext, Ciphertext
 from fhe_precompiles_tpu_torch.encoding import PLAIN_TYPES
@@ -65,6 +77,7 @@ from fhe_precompiles_tpu_torch.ops import four_step as fsm
 from fhe_precompiles_tpu_torch.ops import ntt as nttm
 from fhe_precompiles_tpu_torch.ops.engine import TorchEngine
 from fhe_precompiles_tpu_torch.ops.modmath import csub_reduce
+from fhe_precompiles_tpu_torch.parallel import RequestStream
 from fhe_precompiles_tpu_torch.params import (BENCH_N1024, BENCH_N8192,
                                               TESTNET_ONE)
 from fhe_precompiles_tpu_torch.serialization import keyio, zstd_codec
@@ -72,11 +85,23 @@ from fhe_precompiles_tpu_torch.serialization import zstd_probes
 from fhe_precompiles_tpu_torch.serialization.bincode import Writer
 from fhe_precompiles_tpu_torch.serialization.seal import (SealCiphertextBlob,
                                                           compute_parms_id)
+from fhe_precompiles_tpu_torch.serve import (BINARY_SPECS, FALLBACK_REASONS,
+                                             ByteServer)
 
 BATCH = 128          # the main path's batch
 DISTINCT = 8         # distinct ciphertexts, tiled up to BATCH
 SWEEP = (1, 16, 32, 64, 256, 512)   # other batch sizes timed beside BATCH
 SEED = 20240607
+# phase serve: requests in the stream, of them per-request calls and
+# malformed ones (the rest cipher∘cipher), distinct ciphertexts a user key,
+# the server's batch, the golden app's sample, the continuous burst
+SERVE_REQUESTS = 1024
+SERVE_PER_REQUEST = 32
+SERVE_MALFORMED = 16
+SERVE_DISTINCT = 16
+SERVE_MAX_BATCH = 128
+SERVE_GOLDEN_SAMPLE = 32
+SERVE_BURST = 256
 
 # Published peaks of one H100 SXM.  Memory: 3.35 TB/s.  The kernels do 64-bit
 # integer arithmetic on the 32-bit integer pipe, which has half the lanes of
@@ -1519,6 +1544,7 @@ def phase_app(torch_app: FheApp, golden: FheApp, rows: dict,
             raise AssertionError("the split mul cc differs from the golden "
                                  "app")
     return {"phase": "app", "ok": True, "card": card,
+            "shared": (user_keys, calldata),
             "preset": "testnet.one", "zstd_codec": zstd_codec.codec_name(),
             "zstd_canonical": canonical,
             "zstd_warning": [str(w.message) for w in caught],
@@ -1530,6 +1556,286 @@ def phase_app(torch_app: FheApp, golden: FheApp, rows: dict,
             "mul_cc_split_ms_median": {k: statistics.median(v)
                                        for k, v in split.items()},
             "ms_all": ms_all}
+
+
+# ---------------------------------------------------------------------------
+# phase serve: a stream of precompile calls through ByteServer
+# ---------------------------------------------------------------------------
+
+def serve_requests(golden: FheApp, stream: RequestStream, user_keys,
+                   calldata: dict, cases):
+    """The 1,024 requests of phase serve, shuffled with the script's seed,
+    and the count of cipher∘cipher multiplies under each user key.
+
+    Two user keys from the seed (phase app's and a second), 16 distinct
+    ciphertexts a key, their plain types cycling over the four; then, in
+    order: ``make_mixed_requests``' mix (45 % add, 10 % sub, 45 % mul) of
+    those, all cipher∘cipher, half under each key; 32 per-request calls
+    (cp, pc, encrypt, decrypt, reencrypt; phase app's calldata); the first
+    16 of phase app's invalid or odd inputs."""
+    ctx, prm = golden.ctx, golden.params
+    second = ctx.generate_keys(
+        seed=hashlib.sha512(str(SEED + 1).encode()).digest())
+    n_cc = SERVE_REQUESTS - SERVE_PER_REQUEST - SERVE_MALFORMED
+    tnames = list(SCALARS)
+    reqs, muls = [], []
+    for u, (pk, _sk) in enumerate((user_keys, second)):
+        key = types.SimpleNamespace(to_bytes=lambda b=pk.to_bytes(): b)
+        cts, blobs = [], []
+        for j in range(SERVE_DISTINCT):
+            t = tnames[j % len(tnames)]
+            cts.append(ctx.encrypt(
+                PLAIN_TYPES[t].encode(app_value(t, j + 1), prm), pk,
+                hashlib.sha512(f"serve {u} {j}".encode()).digest()))
+            blobs.append(_CT_CODEC.serialize(cts[-1]))
+        slot = {id(ct.data): j for j, ct in enumerate(cts)}
+        mixed = stream.make_mixed_requests(cts, n_cc // 2, seed=SEED + u)
+        for r in mixed:
+            i, j = slot[id(r.a)], slot[id(r.b)]
+            t = tnames[i % len(tnames)]
+            reqs.append((f"{r.op}_cipher{t}_cipher{t}",
+                         pack.pack_binary_operation(key, blobs[i], pack.BYTES,
+                                                    blobs[j], pack.BYTES)))
+        muls.append(sum(r.op == "mul" for r in mixed))
+    rng = np.random.default_rng(SEED + 10)
+    per_request = [name for name in PRECOMPILE_NAMES
+                   if name != "public_key_bytes"
+                   and BINARY_SPECS.get(name, ("", ""))[1] != "cc"]
+    for name in rng.choice(per_request, SERVE_PER_REQUEST, replace=False):
+        reqs.append((str(name), calldata[name]))
+    for _label, name, data, _code in cases[:SERVE_MALFORMED]:
+        reqs.append((name, data))
+    assert len(reqs) == SERVE_REQUESTS
+    return [reqs[i] for i in rng.permutation(len(reqs))], muls
+
+
+def latency_ms(server: ByteServer, reqs) -> list:
+    """Submit every request at once; milliseconds from each submit to its
+    answer, and the answers."""
+    done = {}
+    futs = []
+    for i, (name, data) in enumerate(reqs):
+        t0 = time.perf_counter()
+        fut = server.submit(name, data)
+        fut.add_done_callback(
+            lambda f, i=i, t0=t0: done.__setitem__(i, time.perf_counter()
+                                                   - t0))
+        futs.append(fut)
+    outs = [f.result(timeout=120) for f in futs]
+    return [done[i] * 1e3 for i in range(len(reqs))], outs
+
+
+def phase_serve(torch_app: FheApp, golden: FheApp, user_keys, calldata: dict,
+                rows: dict, card: str) -> dict:
+    """A stream of 1,024 precompile calls (``serve_requests``) through
+    ``ByteServer(TESTNET_ONE, max_batch=128)`` on the card's torch app:
+    every response equal to the torch app's ``FheApp.call`` one at a time, 32
+    of them to the golden app; no cipher∘cipher request fell back; the
+    launch counters, set to 0 before the server's run, equal the
+    per-request calls' launches plus one ``_mul_relin``'s for each batch of
+    up to 128 multiplies a key.  Then requests a second of ``run`` (median
+    of 3) against call by call, the split of ``run`` into decode, device,
+    encode and fallback, the same on one worker thread, and continuous
+    mode: a lone request's latency at flush_ms = 5 and a burst of 256
+    ``submit`` calls."""
+    server = ByteServer(TESTNET_ONE, max_batch=SERVE_MAX_BATCH, app=torch_app)
+    try:
+        cases = app_error_cases(golden, user_keys, calldata)
+        reqs, muls = serve_requests(golden, server.stream, user_keys,
+                                    calldata, cases)
+        # call by call on the torch app, each call's launches counted
+        want, each = [], []
+        t0 = time.perf_counter()
+        for name, data in reqs:
+            reset_launch_counts()
+            want.append(torch_app.call(name, data))
+            each.append(launch_counts())
+        torch.cuda.synchronize()
+        call_by_call_s = time.perf_counter() - t0
+
+        reset_launch_counts()
+        got = server.run(reqs)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        if bad:
+            raise AssertionError(f"{len(bad)} responses differ from call by "
+                                 f"call, first {reqs[bad[0]][0]}")
+        sample = np.random.default_rng(SEED + 11).choice(
+            len(reqs), SERVE_GOLDEN_SAMPLE, replace=False)
+        for i in sample:
+            if got[i] != golden.call(*reqs[i]):
+                raise AssertionError(f"{reqs[i][0]}: differs from the golden "
+                                     "app")
+
+        is_cc = [BINARY_SPECS.get(name, ("", ""))[1] == "cc"
+                 for name, _ in reqs]
+        want_fallbacks = {
+            "not_batchable": sum(name in PRECOMPILE_NAMES and not cc
+                                 for (name, _), cc in zip(reqs, is_cc)),
+            "ciphertext_size": sum(
+                label.startswith("size-3") and
+                BINARY_SPECS.get(name, ("", ""))[1] == "cc"
+                for label, name, _, _ in cases[:SERVE_MALFORMED]),
+            "device": 0, "encode": 0}
+        fallbacks = dict(server.fallbacks)
+        if {r: fallbacks.get(r, 0) for r in FALLBACK_REASONS} != \
+                want_fallbacks or set(fallbacks) - set(FALLBACK_REASONS):
+            raise AssertionError(f"fallbacks {fallbacks}, expected "
+                                 f"{want_fallbacks}")
+        batches = sum(-(-m // SERVE_MAX_BATCH) for m in muls)
+        want_counts = {k: batches * CALLS_PER_MUL_RELIN.get(k, 0)
+                       + sum(c[k] for c, cc in zip(each, is_cc) if not cc)
+                       for k in KERNEL_NAMES}
+        if counts != want_counts:
+            raise AssertionError(f"server launches {counts}, expected "
+                                 f"{want_counts}")
+        if any(counts[k] == 0 for k in CALLS_PER_MUL_RELIN):
+            raise AssertionError(f"a kernel of the serve path never ran: "
+                                 f"{counts}")
+        for k in KERNEL_NAMES:
+            rows[k]["launches_serve"] = counts[k]
+        call_by_call_counts = {k: sum(c[k] for c in each)
+                               for k in KERNEL_NAMES}
+
+        run_s, splits = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            again = server.run(reqs)
+            torch.cuda.synchronize()
+            run_s.append(time.perf_counter() - t0)
+            splits.append(server.last_split_ms)
+            if again != want:
+                raise AssertionError("a repeated run differs")
+
+        # the same run on one worker thread: what the threads buy
+        with ByteServer(TESTNET_ONE, workers=1, max_batch=SERVE_MAX_BATCH,
+                        app=torch_app) as single:
+            t0 = time.perf_counter()
+            if single.run(reqs) != want:
+                raise AssertionError("the one-worker run differs")
+            one_worker_s = time.perf_counter() - t0
+            one_worker_split = single.last_split_ms
+
+        mul_cc = next(r for r, cc, w in zip(reqs, is_cc, want)
+                      if cc and r[0].startswith("mul") and w[0] == 0)
+        server.start_continuous(flush_ms=5.0)
+        try:
+            lone = []
+            for _ in range(10):
+                ms, outs = latency_ms(server, [mul_cc])
+                lone += ms
+                if outs[0] != torch_app.call(*mul_cc):
+                    raise AssertionError("continuous: lone request differs")
+            t0 = time.perf_counter()
+            burst, outs = latency_ms(server, reqs[:SERVE_BURST])
+            burst_s = time.perf_counter() - t0
+            if outs != want[:SERVE_BURST]:
+                raise AssertionError("continuous: the burst differs")
+        finally:
+            server.stop_continuous()
+    finally:
+        server.close()
+    run_med = statistics.median(run_s)
+    return {"phase": "serve", "ok": True, "card": card,
+            "preset": "testnet.one", "requests": len(reqs),
+            "max_batch": SERVE_MAX_BATCH, "workers": server.workers,
+            "cc_requests": sum(is_cc), "mul_cc_by_key": muls,
+            "mul_batches": batches,
+            "equal_to_call_by_call": len(reqs),
+            "equal_to_golden_sample": SERVE_GOLDEN_SAMPLE,
+            "fallbacks": {r: fallbacks.get(r, 0) for r in FALLBACK_REASONS},
+            "launches": counts, "launches_call_by_call": call_by_call_counts,
+            "requests_per_s_median": len(reqs) / run_med,
+            "run_s": run_s,
+            "call_by_call_requests_per_s": len(reqs) / call_by_call_s,
+            "call_by_call_s": call_by_call_s,
+            "run_split_ms_median": {
+                k: statistics.median(s[k] for s in splits)
+                for k in splits[0]},
+            "one_worker_s": one_worker_s,
+            "one_worker_split_ms": one_worker_split,
+            "continuous": {
+                "flush_ms": 5.0, "lone_mul_cc_ms_median":
+                statistics.median(lone), "lone_ms": lone,
+                "burst": SERVE_BURST,
+                "burst_p50_ms": float(np.percentile(burst, 50)),
+                "burst_p99_ms": float(np.percentile(burst, 99)),
+                "burst_s": burst_s}}
+
+
+# ---------------------------------------------------------------------------
+# phase c_abi: the 51-symbol C library
+# ---------------------------------------------------------------------------
+
+def phase_c_abi(torch_app: FheApp, calldata: dict, rows: dict,
+                card: str) -> dict:
+    """Builds ``libc_fhe.so`` and ``host_test.c``, runs the host as its own
+    process (a C ``main``, its own interpreter, the default app: the torch
+    engine on the card; it must print HOST TEST PASSED), then calls the 49
+    precompiles through the ctypes view in this process, on the default
+    app: each gives the torch app's code 0 and bytes and launches the
+    kernels phase app counted for its class.  Then the host milliseconds of
+    a call through the ABI against ``FheApp.call`` by op class."""
+    t0 = time.perf_counter()
+    lib = native.build()
+    exe = native.build_host_test()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run([exe], capture_output=True, text=True, timeout=600)
+    host_s = time.perf_counter() - t0
+    if proc.returncode != 0 or "HOST TEST PASSED" not in proc.stdout:
+        raise AssertionError(f"host_test: exit {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+
+    abi = native.NativeFhe(lib)
+    native.use_app(None)
+    app = native.current_app()          # built here, not inside a count
+    if app._engine.device.type != "cuda":
+        raise AssertionError("the ABI's default app is not on the card")
+    totals = {name: 0 for name in KERNEL_NAMES}
+    for name in PRECOMPILE_NAMES:
+        data = calldata[name]
+        reset_launch_counts()
+        got = abi.call(name, data)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = torch_app.call(name, data)
+        if got[0] != 0 or got != want:
+            raise AssertionError(f"{name} through the ABI: code {got[0]}, "
+                                 f"bytes equal {got[1] == want[1]}")
+        cls = app_op_class(name)
+        if counts != expected_counts(APP_CALLS[cls]):
+            raise AssertionError(f"{name} through the ABI: launch counts "
+                                 f"{counts}, expected "
+                                 f"{expected_counts(APP_CALLS[cls])}")
+        for k, v in counts.items():
+            totals[k] += v
+    if any(totals[k] == 0 for k in CALLS_PER_MUL_RELIN):
+        raise AssertionError(f"a kernel of the ABI path never ran: {totals}")
+    for k in KERNEL_NAMES:
+        rows[k]["launches_abi"] = totals[k]
+
+    ms = {"abi": {}, "app": {}}
+    for cls, name in APP_TIMED.items():
+        data = calldata[name]
+        abi_t, app_t = [], []
+        for _ in range(15):             # in turns
+            for fn, out in ((abi.call, abi_t), (torch_app.call, app_t)):
+                t0 = time.perf_counter()
+                code, _ = fn(name, data)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+                if code:
+                    raise AssertionError(f"timed {name}: code {code}")
+        ms["abi"][cls] = statistics.median(abi_t)
+        ms["app"][cls] = statistics.median(app_t)
+    return {"phase": "c_abi", "ok": True, "card": card,
+            "library": os.path.relpath(lib), "build_s": build_s,
+            "host_test": proc.stdout.strip().splitlines(),
+            "host_test_s": host_s,
+            "ops_equal_to_torch_app": len(PRECOMPILE_NAMES),
+            "launches": totals, "ms_median": ms}
 
 
 def main() -> int:
@@ -1577,8 +1883,13 @@ def main() -> int:
     emit(phase_round_trip(eng, rows, keys, host_cts))
     emit(phase_timing(eng, inputs, card, rows))
     emit(phase_four_step_path(eng4, eng, rows, keys, host_cts, inputs, card))
-    emit(phase_app(FheApp(TESTNET_ONE, engine="torch"),
-                   FheApp(TESTNET_ONE, engine="golden"), rows, card))
+    torch_app = FheApp(TESTNET_ONE, engine="torch")
+    golden = FheApp(TESTNET_ONE, engine="golden")
+    app = phase_app(torch_app, golden, rows, card)
+    user_keys, calldata = app.pop("shared")
+    emit(app)
+    emit(phase_serve(torch_app, golden, user_keys, calldata, rows, card))
+    emit(phase_c_abi(torch_app, calldata, rows, card))
 
     print(card, flush=True)
     emit({"kernels": [rows[name] for name in KERNEL_NAMES]})

@@ -65,7 +65,11 @@ class _CachedPkCodec(pack.ObjectCodec):
         if hit is not None:
             return hit
         obj = super().deserialize(data)
-        self._cache[key] = obj
+        # threads that parse the same key at once all get the first parse:
+        # one object for each distinct key's bytes (ByteServer groups by it)
+        hit = self._cache.setdefault(key, obj)
+        if hit is not obj:
+            return hit
         self._order.append(key)
         if len(self._order) > self._MAX:
             evict = self._order.pop(0)

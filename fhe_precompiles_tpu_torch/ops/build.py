@@ -1,5 +1,6 @@
 """Builds the CUDA sources under ``csrc/`` into one shared library and loads
-it with ``ctypes``.
+it with ``ctypes``; builds the C ABI shim (``native/c_fhe.cpp``) with the
+host's C++ compiler.
 
 ``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into
 ``fhe_precompiles_tpu_torch/_build/`` at first use; the file name carries a
@@ -9,6 +10,12 @@ seconds); pointers and the stream cross as ``c_void_p``.
 
 Nothing here runs when the module is imported: a machine without ``nvcc``
 can import the package and use the CPU path.  ``load_library`` raises there.
+
+``build_c_abi`` compiles ``native/c_fhe.cpp`` (no nvcc: g++ with the running
+interpreter's headers, linked to its ``libpython`` as the JAX package's
+``native/Makefile`` does) into ``_build/libc_fhe.so``, a stable name a C
+host links with ``-lc_fhe``; a hash of the sources and flags beside it says
+when to build again.
 """
 from __future__ import annotations
 
@@ -17,12 +24,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
+NATIVE = _PKG / "native"
 BUILD_DIR = _PKG / "_build"
+# the shim strips three components of its own path (libc_fhe.so, _build/,
+# the package directory) to find the repository root
+C_ABI_LIB = BUILD_DIR / "libc_fhe.so"
 
 # --threads 0: the sources are compiled side by side, one job for each
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -124,3 +136,38 @@ def load_library(verbose: bool = False):
     _set_argtypes(lib)
     _lib = lib
     return lib
+
+
+def c_abi_command(out: Path) -> list:
+    """The g++ command that builds the shim into `out`, linked to the
+    running interpreter's shared ``libpython`` (a standalone C host then
+    starts its own interpreter; loaded into this one, the shim uses it)."""
+    libdir = sysconfig.get_config_var("LIBDIR")
+    return ["g++", "-O2", "-fPIC", "-Wall", "-Wextra", "-std=c++17",
+            "-shared", "-I", sysconfig.get_config_var("INCLUDEPY"),
+            "-I", str(NATIVE), str(NATIVE / "c_fhe.cpp"), "-o", str(out),
+            f"-L{libdir}", f"-Wl,-rpath,{libdir}",
+            f"-lpython{sysconfig.get_config_var('LDVERSION')}", "-ldl"]
+
+
+def build_c_abi() -> Path:
+    """Builds ``_build/libc_fhe.so`` if the sources or the command changed
+    since the last build; returns its path.  Raises if g++ fails."""
+    h = hashlib.sha256()
+    for f in (NATIVE / "c_fhe.cpp", NATIVE / "c_fhe.h"):
+        h.update(f.read_bytes())
+    h.update(" ".join(c_abi_command(C_ABI_LIB)).encode())
+    stamp = C_ABI_LIB.with_name(C_ABI_LIB.name + ".sha256")
+    digest = h.hexdigest()
+    if (C_ABI_LIB.is_file() and stamp.is_file()
+            and stamp.read_text() == digest):
+        return C_ABI_LIB
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = C_ABI_LIB.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(c_abi_command(tmp), capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("g++ failed:\n" + " ".join(c_abi_command(tmp))
+                           + "\n" + proc.stdout + proc.stderr)
+    os.replace(tmp, C_ABI_LIB)
+    stamp.write_text(digest)
+    return C_ABI_LIB

@@ -34,7 +34,10 @@ def test_every_submodule_is_listed():
                  "encoding", "metrics", "app", "testnet", "serialization",
                  "serialization.bincode", "serialization.seal",
                  "serialization.keyio", "serialization.zstd_probes",
-                 "serialization.zstd_codec"):
+                 "serialization.zstd_codec", "native", "parallel",
+                 "parallel.stream", "serve", "seal_compat",
+                 "seal_compat.blake2xb", "seal_compat.prng",
+                 "seal_compat.sampler", "seal_compat.encryptor"):
         assert "fhe_precompiles_tpu_torch." + want in names
 
 
@@ -79,6 +82,12 @@ def test_no_environment_variable_chooses_engine_or_device():
     files = [f for f in root.rglob("*.py")
              if "_build" not in f.relative_to(root).parts]
     files += [root.parent / "chip_smoke.py", root.parent / "chip_compare.py"]
+    # the C ABI's sources too: the shim and its host read no environment
+    c_files = [f for ext in ("*.cpp", "*.c", "*.h") for f in root.rglob(ext)
+               if "_build" not in f.relative_to(root).parts]
+    assert {f.name for f in c_files} >= {"c_fhe.cpp", "c_fhe.h",
+                                         "host_test.c"}
+    files += c_files
     pat = re.compile(r"\b(environ|getenv|putenv)\b")
     reads = []
     for f in files:
