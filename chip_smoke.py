@@ -17,7 +17,11 @@ golden ``FheApp``, with a dozen invalid inputs, the launch counters of every
 call and the host time of a call by op class; then a stream of 1,024
 precompile calls through the batched ``ByteServer`` (phase serve: every
 response equal to ``FheApp.call`` one at a time, the batches in the launch
-counters, requests a second, continuous mode's latency); then the C ABI
+counters, requests a second, continuous mode's latency), with the python
+codec and then with the native one (``codec="native"``: the C++ codec
+library built with g++ from ``fhe_precompiles_tpu_torch/native/`` beside
+the CUDA build, all 36 binary ops and the threshold calls batched, pooled
+windows, the launches against a count derived from its windows); then the C ABI
 (phase c_abi: ``libc_fhe.so`` and its C host ``host_test.c`` on the card,
 and the 49 precompiles through the library's 51 symbols by ctypes, each
 equal to ``FheApp.call`` with its launches). Before that it builds the CUDA
@@ -39,8 +43,9 @@ gives them, one ``{"kernels": [...]}`` line (per kernel: launches counted
 during its path's run, during its round trip and during the 49 precompile
 calls of phase app, error against the plain version, measured times, and the
 least time the card could take, with its bytes and operations terms;
-``launches_serve`` and ``launches_abi`` are the launches of phase serve's
-``ByteServer.run`` and of phase c_abi's 49 calls through the library; ``ms``
+``launches_serve``, ``launches_serve_native`` and ``launches_abi`` are the
+launches of phase serve's ``ByteServer.run`` with each codec and of phase
+c_abi's 49 calls through the library; ``ms``
 is taken with the inputs cold in the cache and is the time ``bound_ms`` is
 held against, ``same_buffers_ms`` repeats one input set, ``path_ms`` is one
 call inside ``_mul_relin``, for the NTTs the call of the shape that ``ms``
@@ -52,6 +57,7 @@ It imports ``fhe_precompiles_tpu_torch`` only, never JAX.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hashlib
 import importlib.metadata
@@ -63,6 +69,7 @@ import sys
 import time
 import types
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -86,7 +93,7 @@ from fhe_precompiles_tpu_torch.serialization.bincode import Writer
 from fhe_precompiles_tpu_torch.serialization.seal import (SealCiphertextBlob,
                                                           compute_parms_id)
 from fhe_precompiles_tpu_torch.serve import (BINARY_SPECS, FALLBACK_REASONS,
-                                             ByteServer)
+                                             POOL_COUNTERS, ByteServer)
 
 BATCH = 128          # the main path's batch
 DISTINCT = 8         # distinct ciphertexts, tiled up to BATCH
@@ -162,6 +169,15 @@ APP_CALLS = {
     "reencrypt": {"ntt": 2, "intt": 3}, "decrypt": {"ntt": 1, "intt": 1},
     "public_key_bytes": {},
 }
+# launches of the native codec's batched dispatches (serve.py
+# _run_native): one _prepare (a pooled chunk of at most max_batch
+# ciphertexts), one prepared multiply + relinearize, one batch of each
+# plain op, encrypt and decrypt at size 2
+PREPARE_CALLS = {"to_bsk_ext": 1, "ntt": 1}
+PREPARED_MUL_CALLS = {k: v - 2 * PREPARE_CALLS.get(k, 0)
+                      for k, v in CALLS_PER_MUL_RELIN.items()}
+PLAIN_CALLS = {"add_plain": {}, "sub_plain": {}, "plain_sub": {},
+               "mul_plain": APP_CALLS["mul cp"]}
 # one precompile of each op class, timed on both apps
 APP_TIMED = {"add cc": "add_cipheru64_cipheru64",
              "add cp": "add_cipheru64_u64",
@@ -1609,6 +1625,33 @@ def serve_requests(golden: FheApp, stream: RequestStream, user_keys,
     return [reqs[i] for i in rng.permutation(len(reqs))], muls
 
 
+def profiled_run(server: ByteServer, reqs, want) -> dict:
+    """One ``server.run(reqs)`` under ``torch.profiler``: its wall time, the
+    card's busy time (the device events' self time, as the profiler's
+    table sums it) and the idle share, and the device-to-host copies'
+    part of the busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        got = server.run(reqs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if got != want:
+        raise AssertionError("the profiled run differs")
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    if busy_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "memcpy_dtoh_ms": sum(e.self_device_time_total for e in dev
+                                  if e.key.startswith("Memcpy DtoH")) / 1e3}
+
+
 def latency_ms(server: ByteServer, reqs) -> list:
     """Submit every request at once; milliseconds from each submit to its
     answer, and the answers."""
@@ -1625,78 +1668,51 @@ def latency_ms(server: ByteServer, reqs) -> list:
     return [done[i] * 1e3 for i in range(len(reqs))], outs
 
 
-def phase_serve(torch_app: FheApp, golden: FheApp, user_keys, calldata: dict,
-                rows: dict, card: str) -> dict:
-    """A stream of 1,024 precompile calls (``serve_requests``) through
-    ``ByteServer(TESTNET_ONE, max_batch=128)`` on the card's torch app:
-    every response equal to the torch app's ``FheApp.call`` one at a time, 32
-    of them to the golden app; no cipher∘cipher request fell back; the
-    launch counters, set to 0 before the server's run, equal the
-    per-request calls' launches plus one ``_mul_relin``'s for each batch of
-    up to 128 multiplies a key.  Then requests a second of ``run`` (median
-    of 3) against call by call, the split of ``run`` into decode, device,
-    encode and fallback, the same on one worker thread, and continuous
-    mode: a lone request's latency at flush_ms = 5 and a burst of 256
-    ``submit`` calls."""
-    server = ByteServer(TESTNET_ONE, max_batch=SERVE_MAX_BATCH, app=torch_app)
+def measure_server(torch_app: FheApp, reqs, want, golden_out: dict,
+                   codec: str, want_fallbacks: dict, expect_counts,
+                   launches_key: str, rows: dict) -> dict:
+    """Phase serve's stream through ``ByteServer(TESTNET_ONE,
+    max_batch=128, codec=codec)`` on the card's torch app: every response
+    equal to call by call (`want`) and the sampled ones to the golden app
+    (`golden_out`); the fallbacks by reason equal to `want_fallbacks`; the
+    launch counters, set to 0 before the run, equal to
+    ``expect_counts(server)`` (derived before the run) and every kernel of
+    ``_mul_relin`` launched (written into ``rows`` under `launches_key`).
+    Then requests a second of ``run`` (median of 3), the run's split, one
+    run under the profiler (``profiled_run``), the same on one worker
+    thread, continuous mode (a lone ``mul`` cc at flush_ms = 5, ten times,
+    and a burst of ``SERVE_BURST`` submits), and no batched fault in any of
+    these later runs."""
+    server = ByteServer(TESTNET_ONE, max_batch=SERVE_MAX_BATCH, app=torch_app,
+                        codec=codec)
     try:
-        cases = app_error_cases(golden, user_keys, calldata)
-        reqs, muls = serve_requests(golden, server.stream, user_keys,
-                                    calldata, cases)
-        # call by call on the torch app, each call's launches counted
-        want, each = [], []
-        t0 = time.perf_counter()
-        for name, data in reqs:
-            reset_launch_counts()
-            want.append(torch_app.call(name, data))
-            each.append(launch_counts())
-        torch.cuda.synchronize()
-        call_by_call_s = time.perf_counter() - t0
-
+        want_counts = expect_counts(server)
         reset_launch_counts()
         got = server.run(reqs)
         torch.cuda.synchronize()
         counts = launch_counts()
         bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
         if bad:
-            raise AssertionError(f"{len(bad)} responses differ from call by "
-                                 f"call, first {reqs[bad[0]][0]}")
-        sample = np.random.default_rng(SEED + 11).choice(
-            len(reqs), SERVE_GOLDEN_SAMPLE, replace=False)
-        for i in sample:
-            if got[i] != golden.call(*reqs[i]):
-                raise AssertionError(f"{reqs[i][0]}: differs from the golden "
-                                     "app")
-
-        is_cc = [BINARY_SPECS.get(name, ("", ""))[1] == "cc"
-                 for name, _ in reqs]
-        want_fallbacks = {
-            "not_batchable": sum(name in PRECOMPILE_NAMES and not cc
-                                 for (name, _), cc in zip(reqs, is_cc)),
-            "ciphertext_size": sum(
-                label.startswith("size-3") and
-                BINARY_SPECS.get(name, ("", ""))[1] == "cc"
-                for label, name, _, _ in cases[:SERVE_MALFORMED]),
-            "device": 0, "encode": 0}
-        fallbacks = dict(server.fallbacks)
-        if {r: fallbacks.get(r, 0) for r in FALLBACK_REASONS} != \
-                want_fallbacks or set(fallbacks) - set(FALLBACK_REASONS):
-            raise AssertionError(f"fallbacks {fallbacks}, expected "
-                                 f"{want_fallbacks}")
-        batches = sum(-(-m // SERVE_MAX_BATCH) for m in muls)
-        want_counts = {k: batches * CALLS_PER_MUL_RELIN.get(k, 0)
-                       + sum(c[k] for c, cc in zip(each, is_cc) if not cc)
-                       for k in KERNEL_NAMES}
+            raise AssertionError(f"{codec}: {len(bad)} responses differ from "
+                                 f"call by call, first {reqs[bad[0]][0]}")
+        for i, out in golden_out.items():
+            if got[i] != out:
+                raise AssertionError(f"{codec}: {reqs[i][0]} differs from the "
+                                     "golden app")
+        fallbacks = {r: server.fallbacks.get(r, 0) for r in FALLBACK_REASONS}
+        if fallbacks != want_fallbacks or \
+                set(server.fallbacks) - set(FALLBACK_REASONS):
+            raise AssertionError(f"{codec}: fallbacks {dict(server.fallbacks)}"
+                                 f", expected {want_fallbacks}")
+        pooled = {c: server.pooled.get(c, 0) for c in POOL_COUNTERS}
         if counts != want_counts:
-            raise AssertionError(f"server launches {counts}, expected "
-                                 f"{want_counts}")
+            raise AssertionError(f"{codec}: server launches {counts}, "
+                                 f"expected {want_counts}")
         if any(counts[k] == 0 for k in CALLS_PER_MUL_RELIN):
-            raise AssertionError(f"a kernel of the serve path never ran: "
-                                 f"{counts}")
+            raise AssertionError(f"{codec}: a kernel of the serve path never "
+                                 f"ran: {counts}")
         for k in KERNEL_NAMES:
-            rows[k]["launches_serve"] = counts[k]
-        call_by_call_counts = {k: sum(c[k] for c in each)
-                               for k in KERNEL_NAMES}
+            rows[k][launches_key] = counts[k]
 
         run_s, splits = [], []
         for _ in range(3):
@@ -1706,19 +1722,22 @@ def phase_serve(torch_app: FheApp, golden: FheApp, user_keys, calldata: dict,
             run_s.append(time.perf_counter() - t0)
             splits.append(server.last_split_ms)
             if again != want:
-                raise AssertionError("a repeated run differs")
+                raise AssertionError(f"{codec}: a repeated run differs")
+        profiled = profiled_run(server, reqs, want)
 
         # the same run on one worker thread: what the threads buy
         with ByteServer(TESTNET_ONE, workers=1, max_batch=SERVE_MAX_BATCH,
-                        app=torch_app) as single:
+                        app=torch_app, codec=codec) as single:
             t0 = time.perf_counter()
             if single.run(reqs) != want:
-                raise AssertionError("the one-worker run differs")
+                raise AssertionError(f"{codec}: the one-worker run differs")
             one_worker_s = time.perf_counter() - t0
             one_worker_split = single.last_split_ms
 
-        mul_cc = next(r for r, cc, w in zip(reqs, is_cc, want)
-                      if cc and r[0].startswith("mul") and w[0] == 0)
+        mul_cc = next(r for r, w in zip(reqs, want)
+                      if r[0].startswith("mul_")
+                      and BINARY_SPECS.get(r[0], ("", ""))[1] == "cc"
+                      and w[0] == 0)
         server.start_continuous(flush_ms=5.0)
         try:
             lone = []
@@ -1726,42 +1745,196 @@ def phase_serve(torch_app: FheApp, golden: FheApp, user_keys, calldata: dict,
                 ms, outs = latency_ms(server, [mul_cc])
                 lone += ms
                 if outs[0] != torch_app.call(*mul_cc):
-                    raise AssertionError("continuous: lone request differs")
+                    raise AssertionError(f"{codec} continuous: lone request "
+                                         "differs")
             t0 = time.perf_counter()
             burst, outs = latency_ms(server, reqs[:SERVE_BURST])
             burst_s = time.perf_counter() - t0
             if outs != want[:SERVE_BURST]:
-                raise AssertionError("continuous: the burst differs")
+                raise AssertionError(f"{codec} continuous: the burst differs")
         finally:
             server.stop_continuous()
+        if server.fallbacks["device"] or server.fallbacks["encode"]:
+            raise AssertionError(f"{codec}: a batched fault in a later run: "
+                                 f"{dict(server.fallbacks)}")
+        zstd = {} if server.codec is None else {
+            "zstd_source": server.codec.zstd_source,
+            "zstd_canonical": server.codec.zstd_canonical()}
     finally:
         server.close()
-    run_med = statistics.median(run_s)
-    return {"phase": "serve", "ok": True, "card": card,
-            "preset": "testnet.one", "requests": len(reqs),
-            "max_batch": SERVE_MAX_BATCH, "workers": server.workers,
-            "cc_requests": sum(is_cc), "mul_cc_by_key": muls,
-            "mul_batches": batches,
+    return {"workers": server.workers,
             "equal_to_call_by_call": len(reqs),
-            "equal_to_golden_sample": SERVE_GOLDEN_SAMPLE,
-            "fallbacks": {r: fallbacks.get(r, 0) for r in FALLBACK_REASONS},
-            "launches": counts, "launches_call_by_call": call_by_call_counts,
-            "requests_per_s_median": len(reqs) / run_med,
+            "equal_to_golden_sample": len(golden_out),
+            "fallbacks": fallbacks, "pooled": pooled, "launches": counts,
+            "requests_per_s_median": len(reqs) / statistics.median(run_s),
             "run_s": run_s,
-            "call_by_call_requests_per_s": len(reqs) / call_by_call_s,
-            "call_by_call_s": call_by_call_s,
             "run_split_ms_median": {
-                k: statistics.median(s[k] for s in splits)
+                k: statistics.median(sp[k] for sp in splits)
                 for k in splits[0]},
             "one_worker_s": one_worker_s,
             "one_worker_split_ms": one_worker_split,
+            "profiled_run": profiled,
             "continuous": {
                 "flush_ms": 5.0, "lone_mul_cc_ms_median":
                 statistics.median(lone), "lone_ms": lone,
                 "burst": SERVE_BURST,
                 "burst_p50_ms": float(np.percentile(burst, 50)),
                 "burst_p99_ms": float(np.percentile(burst, 99)),
-                "burst_s": burst_s}}
+                "burst_s": burst_s},
+            **zstd}
+
+
+def phase_serve(torch_app: FheApp, golden: FheApp, user_keys, calldata: dict,
+                rows: dict, card: str, codec_build) -> dict:
+    """A stream of 1,024 precompile calls (``serve_requests``) through
+    ``ByteServer`` on the card's torch app, once with each codec
+    (``measure_server``), against the torch app's ``FheApp.call`` one at a
+    time (each call's launches counted) and 32 of them against the golden
+    app.
+
+    The python codec: no cipher∘cipher request falls back; its launches
+    are the per-request calls' plus one ``_mul_relin``'s for each batch of
+    up to 128 multiplies a key.  The native codec (its library built by g++
+    from the repo's sources; `codec_build`: the future of
+    ``build_codec_timed``, started beside the CUDA build): the only
+    fallbacks are the stream's size-3 ciphertexts, at least one window is
+    pooled, and its launches are ``native_serve_counts``'."""
+    stream = RequestStream(torch_app._engine, max_batch=SERVE_MAX_BATCH)
+    cases = app_error_cases(golden, user_keys, calldata)
+    reqs, muls = serve_requests(golden, stream, user_keys, calldata, cases)
+    # call by call on the torch app, each call's launches counted
+    want, each = [], []
+    t0 = time.perf_counter()
+    for name, data in reqs:
+        reset_launch_counts()
+        want.append(torch_app.call(name, data))
+        each.append(launch_counts())
+    torch.cuda.synchronize()
+    call_by_call_s = time.perf_counter() - t0
+    sample = np.random.default_rng(SEED + 11).choice(
+        len(reqs), SERVE_GOLDEN_SAMPLE, replace=False)
+    golden_out = {int(i): golden.call(*reqs[i]) for i in sample}
+
+    is_cc = [BINARY_SPECS.get(name, ("", ""))[1] == "cc" for name, _ in reqs]
+    size3 = [name for label, name, _, _ in cases[:SERVE_MALFORMED]
+             if label.startswith("size-3")]
+    batches = sum(-(-m // SERVE_MAX_BATCH) for m in muls)
+    python_counts = {k: batches * CALLS_PER_MUL_RELIN.get(k, 0)
+                     + sum(c[k] for c, cc in zip(each, is_cc) if not cc)
+                     for k in KERNEL_NAMES}
+    python = measure_server(
+        torch_app, reqs, want, golden_out, "python",
+        {"not_batchable": sum(name in PRECOMPILE_NAMES and not cc
+                              for (name, _), cc in zip(reqs, is_cc)),
+         "ciphertext_size": sum(BINARY_SPECS.get(name, ("", ""))[1] == "cc"
+                                for name in size3),
+         "device": 0, "encode": 0},
+        lambda _server: python_counts, "launches_serve", rows)
+
+    build_s = codec_build.result()
+    want_pooled = []
+
+    def native_counts(server: ByteServer) -> dict:
+        counts, pooled = native_serve_counts(server, reqs, want, each)
+        want_pooled.append(pooled)
+        return counts
+    native_out = measure_server(
+        torch_app, reqs, want, golden_out, "native",
+        {"not_batchable": 0, "ciphertext_size": len(size3), "device": 0,
+         "encode": 0}, native_counts, "launches_serve_native", rows)
+    if native_out["pooled"]["pooled_windows"] != want_pooled[0] or \
+            want_pooled[0] < 1:
+        raise AssertionError(f"native: pooled {native_out['pooled']}, "
+                             f"expected {want_pooled[0]} pooled windows "
+                             "(>= 1)")
+    return {"phase": "serve", "ok": True, "card": card,
+            "preset": "testnet.one", "requests": len(reqs),
+            "max_batch": SERVE_MAX_BATCH,
+            "cc_requests": sum(is_cc), "mul_cc_by_key": muls,
+            "mul_batches": batches,
+            "launches_call_by_call": {k: sum(c[k] for c in each)
+                                      for k in KERNEL_NAMES},
+            "call_by_call_requests_per_s": len(reqs) / call_by_call_s,
+            "call_by_call_s": call_by_call_s,
+            **python,
+            "native": {"library": os.path.relpath(build.NATIVE_CODEC_LIB),
+                       "build_s": build_s, **native_out}}
+
+
+def native_serve_counts(server: ByteServer, reqs, want, each) -> tuple:
+    """The kernel launches and pooled groups that ``server.run(reqs)`` must
+    make with the native codec, derived from what ``_run_native`` does with
+    each window of ``pipeline_window`` requests as the C++ codec decodes
+    them: a cipher∘cipher group of one key whose operands repeat is pooled
+    (one _prepare a chunk of max_batch distinct operands where it
+    multiplies, one prepared multiply a chunk of max_batch multiplies),
+    else one _mul_relin a chunk of multiplies; one dispatch a chunk of each
+    plain op, of encrypts and of decrypts; a reencrypt's decrypt in the
+    decrypts' kind of chunk, its encrypt in a chunk of its target key where
+    the call-by-call result was code 0; a request of another ciphertext
+    size its own call's launches (`each`)."""
+    cb, W = server.max_batch, server.pipeline_window
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    pooled = 0
+
+    def add(calls: dict, times: int = 1) -> None:
+        for k, v in calls.items():
+            counts[k] += v * times
+
+    def chunks(n: int) -> int:
+        return -(-n // cb)
+
+    for w0 in range(0, len(reqs), W):
+        groups, plain, reenc_keys = {}, collections.Counter(), {}
+        n_enc = n_dec = n_reenc = 0
+        for i in range(w0, min(w0 + W, len(reqs))):
+            kind, payload = server._decode_native(*reqs[i])
+            ref = None
+            if kind in ("fallback", "fallback_pk"):
+                add(each[i])
+                ref = payload
+            elif kind == "enc":
+                n_enc += 1
+            elif kind == "dec":
+                n_dec += 1
+            elif kind == "reenc":
+                n_reenc += 1
+                ref = payload[2]
+                if want[i][0] == 0:
+                    reenc_keys[ref.id] = reenc_keys.get(ref.id, 0) + 1
+            elif kind == "plain_pk":
+                plain[payload[0]] += 1
+                ref = payload[3]
+            elif kind == "cc":
+                op, ref, a, b, _digests = payload
+                groups.setdefault(ref.id, []).append((op, a.tobytes(),
+                                                      b.tobytes()))
+            if ref is not None:
+                ref.release()
+        for items in groups.values():
+            distinct = len({x for _, a, b in items for x in (a, b)})
+            muls = sum(op == "mul" for op, _, _ in items)
+            if distinct < 2 * len(items):
+                pooled += 1
+                if muls:
+                    add(PREPARE_CALLS, chunks(distinct))
+                add(PREPARED_MUL_CALLS, chunks(muls))
+            else:
+                add(CALLS_PER_MUL_RELIN, chunks(muls))
+        for fn, n in plain.items():
+            add(PLAIN_CALLS[fn], chunks(n))
+        add(APP_CALLS["encrypt"], chunks(n_enc)
+            + sum(chunks(n) for n in reenc_keys.values()))
+        add(APP_CALLS["decrypt"], chunks(n_dec) + chunks(n_reenc))
+    return counts, pooled
+
+
+def build_codec_timed() -> float:
+    """Builds the native codec library (g++); returns the seconds it
+    took."""
+    t0 = time.perf_counter()
+    build.build_native_codec()
+    return time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------
@@ -1858,6 +2031,10 @@ def main() -> int:
           "triton": triton_version,
           "python": sys.version.split()[0]})
 
+    # the codec library's g++ build runs beside the kernels' nvcc build
+    beside_nvcc = ThreadPoolExecutor(max_workers=1)
+    codec_build = beside_nvcc.submit(build_codec_timed)
+    beside_nvcc.shutdown(wait=False)
     t0 = time.perf_counter()
     build.load_library(verbose="--ptxas" in sys.argv)
     emit({"phase": "build", "ok": True,
@@ -1888,7 +2065,8 @@ def main() -> int:
     app = phase_app(torch_app, golden, rows, card)
     user_keys, calldata = app.pop("shared")
     emit(app)
-    emit(phase_serve(torch_app, golden, user_keys, calldata, rows, card))
+    emit(phase_serve(torch_app, golden, user_keys, calldata, rows, card,
+                     codec_build))
     emit(phase_c_abi(torch_app, calldata, rows, card))
 
     print(card, flush=True)

@@ -9,8 +9,15 @@ extern-C symbols: 49 ``c_fhe_*`` precompiles plus ``fhe_free`` and
 library; the ctypes view ``NativeFhe`` exists for the tests and
 ``chip_smoke.py``.
 
-The JAX package's ``libc_fhe_native.so`` (its C++ engine and codec, with
-the ``fhe_tpu_*`` extension) has no counterpart here.
+``libc_fhe_native.so`` (``precompiles.cpp`` over ``host_engine.cpp``,
+copies of the JAX package's sources that read no environment variable) is
+the C++ codec: it exports only the ``fhe_tpu_*`` extension (and
+``fhe_free``) that ``serve.ByteServer(codec="native")`` drives through
+``codec.NativeCodec``; the 51 symbols it also compiles stay local, so the
+library above remains the one C entry point (``ops/build.py``
+``build_native_codec`` builds it with g++ and ``codec_exports.map``).
+The port's engine over that library (the JAX package's
+``native/engine.py``) is not ported yet.
 """
 from __future__ import annotations
 

@@ -13,6 +13,12 @@
  * fhe_precompiles_tpu_torch/_build/libc_fhe.so; link a host with
  *   gcc host.c -I<this directory> -L<_build> -lc_fhe -Wl,-rpath,<_build>
  *
+ * libc_fhe_native.so (precompiles.cpp over host_engine.cpp, no Python;
+ * built by fhe_precompiles_tpu_torch.ops.build.build_native_codec())
+ * exports only the fhe_tpu_* codec extension declared at the end of this
+ * header and fhe_free, which ByteServer(codec="native") drives; its own
+ * c_fhe_* definitions stay local (native/codec_exports.map).
+ *
  * Contract (identical to the reference):
  *   - return 0 on success; *output is a malloc'd buffer of *output_length
  *     bytes the CALLER must release with fhe_free().
@@ -78,6 +84,115 @@ const char *fhe_error(int32_t error_code);
 FHE_PRECOMPILE_LIST(FHE_PRECOMPILE_DECLARE)
 
 #undef FHE_PRECOMPILE_DECLARE
+
+/* ------------------------------------------------------------------------
+ * Batched codec extension (libc_fhe_native.so only; NOT part of the
+ * 51-symbol reference surface, and not exported by libc_fhe.so).
+ *
+ * These split each precompile at the decode/compute boundary so a serving
+ * host can run the codec (zstd + bincode/SEAL + plaintext encoding + all
+ * wire checks) in C++ worker threads while batching the FHE compute on an
+ * accelerator — with the same error codes and check order as the one-shot
+ * c_fhe_* path, so per-request (code, payload) stays byte-identical.
+ *
+ * All array buffers are caller-allocated u64, row-major; dims come from
+ * fhe_tpu_params(): ciphertexts are (2, k_ct, n), encoded plaintext polys
+ * and decrypted polys are (n,), relin keys are (k_ct, 2, k_key, n).
+ * ---------------------------------------------------------------------- */
+
+/* Bind the library to in-memory network key blobs (the keyio.py wire
+ * format).  Without this call the library reads the package's
+ * data/network.{pub,pri}.  Must agree with any earlier initialization
+ * (the embedded keys or a prior call): returns 3 on key mismatch. */
+int32_t fhe_tpu_init_keys(const uint8_t *pub, size_t pub_len,
+                          const uint8_t *pri, size_t pri_len);
+
+/* Active parameter set: ring size n, ciphertext limbs k_ct, key limbs
+ * k_key, plain modulus t. */
+int32_t fhe_tpu_params(uint64_t *n, uint64_t *k_ct, uint64_t *k_key,
+                       uint64_t *t);
+
+/* Swap in a different zstd build at runtime.  The candidate is dlopen'd
+ * and BYTE-VERIFIED against the checked-in CANONICAL frame hashes
+ * (zstd_canonical.h; canonical build = zstd 1.5.7, the build the
+ * consensus golden hashes were pinned with) before the dispatch table
+ * swaps — the frames are consensus-critical, so a library that
+ * compresses differently is rejected.  This both enables the ~1.45x
+ * faster 1.5.7 wheel builds on the encode path AND is the remediation
+ * when the linked build itself is non-canonical (zstd builds diverge on
+ * sparse-noise ciphertext payloads, which are attacker-steerable through
+ * op outputs).  path == NULL or "system" restores the linked library
+ * (allowed even when non-canonical — explicit operator choice).
+ * Returns 0 ok, 1 dlopen failure, 2 missing symbols, 3 not canonical.
+ * Call before worker threads for a clean swap (a mid-flight call is
+ * still memory-safe). */
+int32_t fhe_tpu_use_libzstd(const char *path);
+
+/* 1 if the ACTIVE zstd dispatch reproduces the canonical consensus
+ * frames, 0 if not (validators should alarm on 0; init also prints a
+ * one-line stderr warning when keys are first bound non-canonically). */
+int32_t fhe_tpu_zstd_canonical(void);
+
+/* Decode one binary-op calldata blob (name = the c_fhe_* suffix, e.g.
+ * "mul_cipheru64_cipheru64").  On 0: *shape = 0 cc / 1 cp / 2 pc, *op =
+ * 0 add / 1 sub / 2 mul; cc fills ct<-a and other<-b (each only if its
+ * size == 2; sizes reported via ct_size/other_size — a size != 2 is
+ * legal data the caller must route to the one-shot path); cp/pc fill
+ * ct<-the ciphertext operand and other<-the encoded (n,) plaintext poly
+ * (other_size = 0).  *pk_handle receives an owned reference: release
+ * with fhe_tpu_pk_release; group batches by fhe_tpu_pk_id. */
+int32_t fhe_tpu_unpack_binary(const char *name, const uint8_t *data,
+                              size_t data_len, uint64_t *ct, uint64_t *other,
+                              int32_t *shape, int32_t *op, uint64_t *ct_size,
+                              uint64_t *other_size, void **pk_handle);
+
+/* Stable identity of the parsed public key while the handle is held
+ * (equal ids <=> byte-identical pk blobs). */
+int32_t fhe_tpu_pk_id(void *pk_handle, uint64_t *id);
+
+/* Copy the key's relinearization block (k_ct, 2, k_key, n); 7 if the key
+ * carries none. */
+int32_t fhe_tpu_pk_relin(void *pk_handle, uint64_t *rk_out);
+
+void fhe_tpu_pk_release(void *pk_handle);
+
+/* Raw (size, k_ct, n) residues -> the serialized ciphertext bytes every
+ * op emits (malloc'd; release with fhe_free). */
+int32_t fhe_tpu_pack_ciphertext(const uint64_t *data, uint64_t size,
+                                uint8_t **out, int64_t *out_len);
+
+/* Decode one encrypt_<tname> calldata blob: writes the encoded (n,)
+ * plaintext poly and the 64-byte deterministic seed (fhe.rs:600-611).
+ * The caller runs the seeded encrypt under the NETWORK public key. */
+int32_t fhe_tpu_unpack_encrypt(const char *tname, const uint8_t *data,
+                               size_t data_len, uint64_t *m,
+                               uint8_t *seed64);
+
+/* Decode one decrypt_* calldata blob (bare ciphertext): fills ct iff its
+ * size == 2 (other sizes: fall back to the one-shot path). */
+int32_t fhe_tpu_unpack_decrypt(const uint8_t *data, size_t data_len,
+                               uint64_t *ct, uint64_t *ct_size);
+
+/* Decrypted (n,) mod-t poly -> big-endian scalar bytes of <tname>
+ * (malloc'd; release with fhe_free).  Any decode failure returns 5. */
+int32_t fhe_tpu_decode_scalar(const char *tname, const uint64_t *poly,
+                              uint8_t **out, int64_t *out_len);
+
+/* Decode one reencrypt_* calldata blob: fills ct (iff size == 2) for the
+ * batched network-key decrypt and hands out the TARGET pk.  After the
+ * device decrypt, fhe_tpu_reencrypt_finish turns the (n,) poly into the
+ * re-encoded plaintext + the full-input-bound 64-byte seed (5 on decode
+ * failure, 6 on encode failure); the caller then batch-encrypts under
+ * the target keys (fhe_tpu_pk_data), grouped by fhe_tpu_pk_id. */
+int32_t fhe_tpu_unpack_reencrypt(const uint8_t *data, size_t data_len,
+                                 uint64_t *ct, uint64_t *ct_size,
+                                 void **pk_handle);
+int32_t fhe_tpu_reencrypt_finish(const char *tname, const uint8_t *data,
+                                 size_t data_len, const uint64_t *poly,
+                                 uint64_t *m, uint8_t *seed64);
+
+/* The parsed key's (2, k_key, n) public-key data. */
+int32_t fhe_tpu_pk_data(void *pk_handle, uint64_t *pk_out);
 
 #ifdef __cplusplus
 }  /* extern "C" */

@@ -16,10 +16,21 @@ interpreter's headers, linked to its ``libpython`` as the JAX package's
 ``native/Makefile`` does) into ``_build/libc_fhe.so``, a stable name a C
 host links with ``-lc_fhe``; a hash of the sources and flags beside it says
 when to build again.
+
+``build_native_codec`` compiles ``native/precompiles.cpp`` and
+``native/host_engine.cpp`` (the C++ codec and host engine, no Python) with
+g++ into ``_build/libc_fhe_native.so``, with a stamp of the same kind; it
+exports the ``fhe_tpu_*`` calls and ``fhe_free`` alone
+(``native/codec_exports.map``).  It links libzstd by its runtime name,
+``-l:libzstd.so.1``, and declares the calls it makes in
+``native/zstd_decls.h``: the card's machine has the library but neither
+``zstd.h`` nor the ``libzstd.so`` link name, so the build is the same on
+every machine.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -35,6 +46,12 @@ BUILD_DIR = _PKG / "_build"
 # the shim strips three components of its own path (libc_fhe.so, _build/,
 # the package directory) to find the repository root
 C_ABI_LIB = BUILD_DIR / "libc_fhe.so"
+# the codec's library strips two components (libc_fhe_native.so, _build/)
+# to find the package's data/ directory
+NATIVE_CODEC_LIB = BUILD_DIR / "libc_fhe_native.so"
+NATIVE_CODEC_SOURCES = ("precompiles.cpp", "host_engine.cpp", "c_fhe.h",
+                        "zstd_canonical.h", "zstd_decls.h",
+                        "codec_exports.map")
 
 # --threads 0: the sources are compiled side by side, one job for each
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -171,3 +188,44 @@ def build_c_abi() -> Path:
     os.replace(tmp, C_ABI_LIB)
     stamp.write_text(digest)
     return C_ABI_LIB
+
+
+def native_codec_command(out: Path) -> list:
+    """The g++ command that builds the codec library into `out`.  Its
+    version script exports the ``fhe_tpu_*`` calls and ``fhe_free`` only:
+    the ``c_fhe_*`` and ``he_*`` names it compiles stay local, so that it
+    neither offers a C host a CPU path nor binds to ``libc_fhe.so``'s
+    names of the same spelling."""
+    return ["g++", "-O3", "-fPIC", "-std=c++17", "-shared",
+            str(NATIVE / "precompiles.cpp"), str(NATIVE / "host_engine.cpp"),
+            "-o", str(out), "-l:libzstd.so.1", "-ldl",
+            "-Wl,--version-script=" + str(NATIVE / "codec_exports.map")]
+
+
+def build_native_codec() -> Path:
+    """Builds ``_build/libc_fhe_native.so`` if the sources or the command
+    changed since the last build; returns its path.  Raises if g++ fails.
+    Processes that build at once take turns (a lock file beside it)."""
+    h = hashlib.sha256()
+    for name in NATIVE_CODEC_SOURCES:
+        h.update(name.encode())
+        h.update((NATIVE / name).read_bytes())
+    h.update(" ".join(native_codec_command(NATIVE_CODEC_LIB)).encode())
+    digest = h.hexdigest()
+    stamp = NATIVE_CODEC_LIB.with_name(NATIVE_CODEC_LIB.name + ".sha256")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(NATIVE_CODEC_LIB.with_name(NATIVE_CODEC_LIB.name + ".lock"),
+              "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if (NATIVE_CODEC_LIB.is_file() and stamp.is_file()
+                and stamp.read_text() == digest):
+            return NATIVE_CODEC_LIB
+        tmp = NATIVE_CODEC_LIB.with_suffix(f".{os.getpid()}.tmp")
+        cmd = native_codec_command(tmp)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("g++ failed:\n" + " ".join(cmd) + "\n"
+                               + proc.stdout + proc.stderr)
+        os.replace(tmp, NATIVE_CODEC_LIB)
+        stamp.write_text(digest)
+    return NATIVE_CODEC_LIB
