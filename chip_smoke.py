@@ -24,7 +24,21 @@ the CUDA build, all 36 binary ops and the threshold calls batched, pooled
 windows, the launches against a count derived from its windows); then the C ABI
 (phase c_abi: ``libc_fhe.so`` and its C host ``host_test.c`` on the card,
 and the 49 precompiles through the library's 51 symbols by ctypes, each
-equal to ``FheApp.call`` with its launches). Before that it builds the CUDA
+equal to ``FheApp.call`` with its launches; then ``libc_fhe_cpu.so``, the
+same 51 symbols computed on the CPU by the C++ host engine: its exports,
+the 49 calls through it equal to the torch app's with no launch, size-1
+ciphertexts equal to the native app's, and ``host_test.c`` linked to it
+dynamically and, statically, to ``libc_fhe_cpu.a``, each passing in a
+process of its own).  Between phases serve and c_abi: phase
+native_engine, the 49 precompiles through ``FheApp(TESTNET_ONE,
+engine="native")`` (the C++ host engine, the CPU validator's engine) equal
+to the torch and golden apps, phase app's invalid inputs with the same
+codes, no kernel launched, and host ms a call against the torch app's; and
+phase soak, one window of 256 requests of the reference soak's mix through
+``ByteServer(codec="native")`` run 3 + 8 times: every run byte-equal to
+the first, the same launches every run, host RSS growth under 60 MB,
+``torch.cuda.memory_allocated()`` flat across the measured runs. Before
+that it builds the CUDA
 kernels from ``fhe_precompiles_tpu_torch/csrc/`` and holds each of the ten
 (five BEHZ tail segments, forward and inverse butterfly NTT, forward and
 inverse four-step NTT, one four-step product) against its plain PyTorch
@@ -36,16 +50,17 @@ is 0, every word must be equal).
 Phases, one JSON line each: device, build, kernels, main_path, round_trip,
 timing, four_step_path, app (with the zstd codec that ran: ``zstandard``, or
 the machine's libzstd through ctypes where ``zstandard`` does not import),
-serve, c_abi.
+serve, native_engine (with the host CPU's model and cores), soak, c_abi.
 Any failure ends the run with a non-zero exit code and without the last
 line. Then, in this order: the card's name and power limit as ``nvidia-smi``
 gives them, one ``{"kernels": [...]}`` line (per kernel: launches counted
 during its path's run, during its round trip and during the 49 precompile
 calls of phase app, error against the plain version, measured times, and the
 least time the card could take, with its bytes and operations terms;
-``launches_serve``, ``launches_serve_native`` and ``launches_abi`` are the
-launches of phase serve's ``ByteServer.run`` with each codec and of phase
-c_abi's 49 calls through the library; ``ms``
+``launches_serve``, ``launches_serve_native``, ``launches_soak`` and
+``launches_abi`` are the launches of phase serve's ``ByteServer.run`` with
+each codec, of one measured run of phase soak and of phase c_abi's 49
+calls through the card's library; ``ms``
 is taken with the inputs cold in the cache and is the time ``bound_ms`` is
 held against, ``same_buffers_ms`` repeats one input set, ``path_ms`` is one
 call inside ``_mul_relin``, for the NTTs the call of the shape that ``ms``
@@ -58,7 +73,9 @@ It imports ``fhe_precompiles_tpu_torch`` only, never JAX.
 from __future__ import annotations
 
 import collections
+import ctypes
 import dataclasses
+import gc
 import hashlib
 import importlib.metadata
 import json
@@ -66,6 +83,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import types
 import warnings
@@ -79,6 +97,7 @@ from fhe_precompiles_tpu_torch import (FheApp, PRECOMPILE_NAMES, convert,
 from fhe_precompiles_tpu_torch.app import _CT_CODEC, _PK_CODEC
 from fhe_precompiles_tpu_torch.bfv import BfvContext, Ciphertext
 from fhe_precompiles_tpu_torch.encoding import PLAIN_TYPES
+from fhe_precompiles_tpu_torch.native import codec as codec_mod
 from fhe_precompiles_tpu_torch.ops import build, tail, tail_cases
 from fhe_precompiles_tpu_torch.ops import four_step as fsm
 from fhe_precompiles_tpu_torch.ops import ntt as nttm
@@ -109,6 +128,11 @@ SERVE_DISTINCT = 16
 SERVE_MAX_BATCH = 128
 SERVE_GOLDEN_SAMPLE = 32
 SERVE_BURST = 256
+# phase soak: warm runs, measured runs, and the reference soak's bound on
+# the host's RSS growth over the measured runs
+SOAK_WARM = 3
+SOAK_MEASURED = 8
+SOAK_RSS_BOUND_KB = 60_000
 
 # Published peaks of one H100 SXM.  Memory: 3.35 TB/s.  The kernels do 64-bit
 # integer arithmetic on the 32-bit integer pipe, which has half the lanes of
@@ -1575,6 +1599,95 @@ def phase_app(torch_app: FheApp, golden: FheApp, rows: dict,
 
 
 # ---------------------------------------------------------------------------
+# phase native_engine: the CPU validator's engine against the card's
+# ---------------------------------------------------------------------------
+
+def host_cpu() -> dict:
+    """The host CPU as ``/proc/cpuinfo`` names its first core (model name,
+    vendor, family and model number, clock), and the core count."""
+    with open("/proc/cpuinfo") as f:
+        first = f.read().split("\n\n")[0]
+    fields = dict(line.split(":", 1) for line in first.splitlines()
+                  if ":" in line)
+    fields = {k.strip(): v.strip() for k, v in fields.items()}
+    return {"model_name": fields.get("model name"),
+            "vendor": fields.get("vendor_id"),
+            "family": fields.get("cpu family"), "model": fields.get("model"),
+            "mhz": fields.get("cpu MHz"), "cores": os.cpu_count()}
+
+
+def phase_native_engine(native_app: FheApp, torch_app: FheApp,
+                        golden: FheApp, user_keys, calldata: dict,
+                        timing: dict, card: str) -> dict:
+    """The 49 precompiles on phase app's calldata through ``FheApp(
+    TESTNET_ONE, engine="native")`` (`native_app`: the C++ host engine on
+    the CPU, the engine of a validator without a card), with the launch
+    counters set to 0 before its calls and read after: no kernel ran.
+    Each (code, bytes) equal to the card's torch app's and the golden
+    app's, each value decrypting right; phase app's invalid inputs with
+    the same code on the three (none is a size-1 ciphertext, on which the
+    C++ engine and the golden model differ: phase c_abi holds those native
+    against native).  Then host ms a call by op class on the native app
+    and the torch app in turns, and one ``NativeEngine.mul_relin`` in ms
+    beside phase timing's B = 1 and B = 128 ms a multiply on the card."""
+    cases = app_error_cases(golden, user_keys, calldata)
+    reset_launch_counts()
+    outs = {name: native_app.call(name, calldata[name])
+            for name in PRECOMPILE_NAMES}
+    err_outs = [native_app.call(name, data) for _, name, data, _ in cases]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the native app launched kernels: {counts}")
+    for name in PRECOMPILE_NAMES:
+        got = outs[name]
+        if got[0] != 0 or got != torch_app.call(name, calldata[name]) \
+                or got != golden.call(name, calldata[name]):
+            raise AssertionError(f"{name} on the native app: code {got[0]}, "
+                                 "not the torch and golden apps' bytes")
+        app_check_value(golden, user_keys[1], name, got[1])
+    for (label, name, data, code), got in zip(cases, err_outs):
+        if not got == torch_app.call(name, data) == golden.call(name, data) \
+                or got[0] != code:
+            raise AssertionError(f"{label} ({name}) on the native app: code "
+                                 f"{got[0]}, expected {code}")
+
+    ms, ms_all = {"native": {}, "torch": {}}, {"native": {}, "torch": {}}
+    for cls, name in APP_TIMED.items():
+        times = {"native": [], "torch": []}
+        for _ in range(7):              # in turns
+            for label, app in (("native", native_app), ("torch", torch_app)):
+                times[label] += app_call_ms(app, name, calldata[name], 1)
+        for label, t in times.items():
+            ms[label][cls] = statistics.median(t)
+            ms_all[label][cls] = t
+    pk, a, b = pack.unpack_binary_operation(
+        calldata["mul_cipheru64_cipheru64"], _PK_CODEC, _CT_CODEC, _CT_CODEC)
+    eng = native_app._engine
+    want = torch_app._engine.mul_relin(a, b, pk.relin).data
+    mul_relin = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        out = eng.mul_relin(a, b, pk.relin)
+        mul_relin.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(out.data, want):
+            raise AssertionError("NativeEngine.mul_relin differs from the "
+                                 "card's")
+    return {"phase": "native_engine", "ok": True, "card": card,
+            "host_cpu": host_cpu(),
+            "library": os.path.relpath(build.HOST_ENGINE_LIB),
+            "ops_equal_to_torch_and_golden": len(PRECOMPILE_NAMES),
+            "errors_same_code": len(cases), "launches": counts,
+            "ms_median": ms, "ms_all": ms_all,
+            "mul_relin_ms_median": statistics.median(mul_relin),
+            "mul_relin_ms_all": mul_relin,
+            "card_mul_relin_ms": {
+                "batch_1": timing["batch_sizes"]["1"]["ms_per_batch"],
+                "batch_128_per_multiply":
+                    timing["ms_per_batch_median"] / BATCH}}
+
+
+# ---------------------------------------------------------------------------
 # phase serve: a stream of precompile calls through ByteServer
 # ---------------------------------------------------------------------------
 
@@ -1938,28 +2051,280 @@ def build_codec_timed() -> float:
 
 
 # ---------------------------------------------------------------------------
+# phase soak: identical windows through the native codec, memory held flat
+# ---------------------------------------------------------------------------
+
+def vmrss_kb() -> int:
+    """Resident kB of this process after glibc hands its free pages back
+    (``malloc_trim``), so that the reading is memory still in use, not the
+    tensors a run freed into the allocator's arenas."""
+    ctypes.CDLL(None).malloc_trim(0)
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1])
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def soak_requests(golden: FheApp, user_keys, calldata: dict,
+                  window: int) -> list:
+    """One window of ``tests/test_serve_soak.py``'s mix (48 add / sub /
+    mul cipher∘cipher under one user key, then an encrypt and a decrypt,
+    in every 50) widened to `window` requests: the operands drawn with the
+    script's seed from phase serve's 16 distinct ciphertexts under phase
+    app's user key, so that the pooled groups form; phase app's
+    ``encrypt_u64`` and ``decrypt_u64`` calldata."""
+    ctx, prm = golden.ctx, golden.params
+    pk = user_keys[0]
+    key = types.SimpleNamespace(to_bytes=lambda b=pk.to_bytes(): b)
+    tnames = list(SCALARS)
+    cts = [(tnames[j % len(tnames)], _CT_CODEC.serialize(ctx.encrypt(
+        PLAIN_TYPES[tnames[j % len(tnames)]].encode(
+            app_value(tnames[j % len(tnames)], j + 1), prm), pk,
+        hashlib.sha512(f"serve 0 {j}".encode()).digest())))
+        for j in range(SERVE_DISTINCT)]
+    rng = np.random.default_rng(SEED + 12)
+    reqs = []
+    for i in range(window):
+        if i % 50 == 48:
+            reqs.append(("encrypt_u64", calldata["encrypt_u64"]))
+        elif i % 50 == 49:
+            reqs.append(("decrypt_u64", calldata["decrypt_u64"]))
+        else:
+            x, y = rng.integers(0, SERVE_DISTINCT, 2)
+            t = cts[x][0]
+            reqs.append((f"{('add', 'sub', 'mul')[i % 3]}_cipher{t}_cipher{t}",
+                         pack.pack_binary_operation(key, cts[x][1],
+                                                    pack.BYTES, cts[y][1],
+                                                    pack.BYTES)))
+    return reqs
+
+
+def phase_soak(torch_app: FheApp, golden: FheApp, user_keys, calldata: dict,
+               rows: dict, card: str) -> dict:
+    """``ByteServer(TESTNET_ONE, codec="native")`` over the card's torch app
+    on one window of ``soak_requests`` (its ``pipeline_window``, 256),
+    first equal to ``FheApp.call`` one at a time; every worker's zstd
+    contexts made (as ``tests/test_serve_soak.py`` does), ``SOAK_WARM``
+    runs, then ``SOAK_MEASURED`` runs, each with the launch counters set to
+    0 before it and read after.  Gates: every run byte-equal to the first,
+    the same launches every run (kernels 1-7 among them), host RSS growth
+    over the measured runs under the reference's 60 MB, and
+    ``torch.cuda.memory_allocated()`` after each measured run equal to its
+    value after the warm runs.  Reports requests/s and the card's peak
+    memory."""
+    server = ByteServer(TESTNET_ONE, max_batch=SERVE_MAX_BATCH, app=torch_app,
+                        codec="native")
+    try:
+        reqs = soak_requests(golden, user_keys, calldata,
+                             server.pipeline_window)
+        want = [torch_app.call(name, data) for name, data in reqs]
+        i_mul = next(i for i, (name, _) in enumerate(reqs)
+                     if name.startswith("mul_"))
+        out_arr = Ciphertext.from_bytes(want[i_mul][1]).data
+        barrier = threading.Barrier(server.workers)
+
+        def prime():
+            barrier.wait(timeout=60)    # each worker takes one task
+            server.codec.pack_ciphertext(out_arr)               # CCtx
+            server.codec.unpack_binary(*reqs[i_mul])[7].release()  # DCtx
+            barrier.wait(timeout=60)
+        for f in [server._pool.submit(prime) for _ in range(server.workers)]:
+            f.result(timeout=120)
+
+        torch.cuda.empty_cache()        # earlier phases' cached blocks
+        first = server.run(reqs)
+        if first != want:
+            raise AssertionError("soak: the first run differs from call by "
+                                 "call")
+        for _ in range(SOAK_WARM - 1):
+            if server.run(reqs) != first:
+                raise AssertionError("soak: a warm run differs")
+        torch.cuda.synchronize()
+        gc.collect()
+        allocated0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rss0 = vmrss_kb()
+        run_s, counts, allocated, rss = [], [], [], []
+        for _ in range(SOAK_MEASURED):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            got = server.run(reqs)
+            torch.cuda.synchronize()
+            run_s.append(time.perf_counter() - t0)
+            counts.append(launch_counts())
+            allocated.append(torch.cuda.memory_allocated())
+            if got != first:
+                raise AssertionError("soak: a measured run differs")
+            del got                     # 246 outputs, about 30 MB
+            gc.collect()
+            rss.append(vmrss_kb() - rss0)
+        rss1 = rss0 + rss[-1]
+        pooled = dict(server.pooled)
+        fallbacks = dict(server.fallbacks)
+        zstd = {"zstd_source": server.codec.zstd_source,
+                "zstd_canonical": server.codec.zstd_canonical()}
+        workers = server.workers
+    finally:
+        server.close()
+    if any(c != counts[0] for c in counts):
+        raise AssertionError(f"soak: launches differ run for run: {counts}")
+    if any(counts[0][k] == 0 for k in CALLS_PER_MUL_RELIN):
+        raise AssertionError(f"a kernel of the soak never ran: {counts[0]}")
+    if rss1 - rss0 >= SOAK_RSS_BOUND_KB:
+        raise AssertionError(f"soak: RSS grew {rss1 - rss0} kB")
+    if any(a != allocated0 for a in allocated):
+        raise AssertionError(f"soak: device memory {allocated} after the "
+                             f"runs, {allocated0} before")
+    for k in KERNEL_NAMES:
+        rows[k]["launches_soak"] = counts[0][k]
+    return {"phase": "soak", "ok": True, "card": card,
+            "preset": "testnet.one", "requests": len(reqs),
+            "mul_cc": sum(name.startswith("mul_") for name, _ in reqs),
+            "workers": workers, "warm_runs": SOAK_WARM,
+            "measured_runs": SOAK_MEASURED,
+            "runs_equal_to_the_first": SOAK_MEASURED + SOAK_WARM - 1,
+            "launches_per_run": counts[0], "pooled": pooled,
+            "fallbacks": fallbacks,
+            "rss_growth_kb": rss1 - rss0, "rss_bound_kb": SOAK_RSS_BOUND_KB,
+            "rss_growth_kb_by_run": rss,
+            "memory_allocated": allocated0,
+            "memory_allocated_after_runs": allocated,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "max_memory_reserved": torch.cuda.max_memory_reserved(),
+            "requests_per_s_median": len(reqs) / statistics.median(run_s),
+            "run_s": run_s, **zstd}
+
+
+# ---------------------------------------------------------------------------
 # phase c_abi: the 51-symbol C library
 # ---------------------------------------------------------------------------
 
-def phase_c_abi(torch_app: FheApp, calldata: dict, rows: dict,
-                card: str) -> dict:
+def size_one_calls(user_keys) -> list:
+    """Decrypt and reencrypt of each plain type on a size-1 ciphertext (its
+    one component drawn with the script's seed), and a ``mul`` cc with one:
+    (name, calldata).  The C++ engine decrypts such a ciphertext where the
+    golden model gives 5, so these are held native against native."""
+    rng = np.random.default_rng(SEED + 13)
+    prm = TESTNET_ONE
+    c1 = Ciphertext(prm, np.stack([rng.integers(0, p, prm.n, dtype=np.uint64)
+                                   for p in prm.ct_moduli])[None])
+    calls = [("mul_cipheru64_cipheru64", pack.pack_binary_operation(
+        user_keys[0], c1, _CT_CODEC, c1, _CT_CODEC))]
+    for t in SCALARS:
+        calls.append((f"decrypt_{t}", pack.pack_one_argument(c1, _CT_CODEC)))
+        calls.append((f"reencrypt_{t}", pack.pack_binary_operation(
+            user_keys[0], c1, _CT_CODEC, b"\x01", pack.BYTES)))
+    return calls
+
+
+def exported_names(path) -> set:
+    """The functions a loader can resolve in the shared library `path`."""
+    out = subprocess.run(["nm", "-D", "--defined-only", str(path)],
+                         check=True, capture_output=True, text=True).stdout
+    return {f[2] for f in map(str.split, out.splitlines())
+            if len(f) == 3 and f[1] == "T"}
+
+
+def run_host(cmd: list, label: str) -> tuple:
+    """Runs a C host as its own process; it must print HOST TEST PASSED.
+    Returns its output lines and its seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0 or "HOST TEST PASSED" not in proc.stdout:
+        raise AssertionError(f"{label}: exit {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout.strip().splitlines(), seconds
+
+
+def cpu_library_checks(torch_app: FheApp, native_app: FheApp, user_keys,
+                       calldata: dict) -> dict:
+    """``libc_fhe_cpu.so`` and ``.a`` (linked from the codec's objects):
+    its dynamic names exactly the reference's 51 and the three
+    ``fhe_tpu_*`` calls; the 49 precompiles through it by ctypes on this
+    process's zstd build, each equal to the torch app's ``FheApp.call``,
+    with no launch; the size-1 calls equal to the native app's (native
+    against native); ``host_test.c`` linked to the shared library and,
+    statically, to the archive (its keys by ``--keys``), each passing in a
+    process of its own, with no Python among its dependencies (and no
+    ``libc_fhe`` in the static one's); the zstd build it runs.  Returns
+    the phase's record and the ctypes view."""
+    t0 = time.perf_counter()
+    path = native.build_cpu()
+    build_s = time.perf_counter() - t0
+    names = exported_names(path)
+    want_names = ({f"c_fhe_{n}" for n in PRECOMPILE_NAMES}
+                  | {"fhe_free", "fhe_error", "fhe_tpu_init_keys",
+                     "fhe_tpu_use_libzstd", "fhe_tpu_zstd_canonical"})
+    if names != want_names:
+        raise AssertionError("libc_fhe_cpu.so: names beyond or short of the "
+                             f"51 and the three: {sorted(names ^ want_names)}")
+    cpu = native.NativeFhe(path)
+    zstd_source = codec_mod.process_zstd()
+    cpu.use_zstd(zstd_source)
+    reset_launch_counts()
+    outs = {name: cpu.call(name, calldata[name]) for name in PRECOMPILE_NAMES}
+    size1 = [(name, data, cpu.call(name, data))
+             for name, data in size_one_calls(user_keys)]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the CPU library launched kernels: {counts}")
+    for name in PRECOMPILE_NAMES:
+        if outs[name][0] != 0 or \
+                outs[name] != torch_app.call(name, calldata[name]):
+            raise AssertionError(f"{name} through libc_fhe_cpu.so: code "
+                                 f"{outs[name][0]}, not the torch app's")
+    for name, data, got in size1:
+        if got != native_app.call(name, data):
+            raise AssertionError(f"size-1 {name}: libc_fhe_cpu.so and the "
+                                 "native app differ")
+
+    hosts, host_s = {}, {}
+    t0 = time.perf_counter()
+    exes = {link: native.build_host_test(link)
+            for link in ("cpu", "cpu_static")}
+    hosts_build_s = time.perf_counter() - t0
+    for link, exe in exes.items():
+        deps = subprocess.run(["ldd", exe], capture_output=True,
+                              text=True).stdout.lower()
+        if "python" in deps or (link == "cpu_static" and "libc_fhe" in deps):
+            raise AssertionError(f"host_test ({link}) depends on:\n{deps}")
+    data_dir = os.path.normpath(os.path.join(os.path.dirname(native.__file__),
+                                             os.pardir, "data"))
+    keys = [os.path.join(data_dir, f"network.{x}") for x in ("pub", "pri")]
+    hosts["cpu"], host_s["cpu"] = run_host([exes["cpu"]], "host_test_cpu")
+    hosts["cpu_static"], host_s["cpu_static"] = run_host(
+        [exes["cpu_static"], "--keys", *keys], "host_test_cpu_static")
+    return {"library": os.path.relpath(path),
+            "static": os.path.relpath(build.NATIVE_CPU_STATIC),
+            "build_s": build_s, "hosts_build_s": hosts_build_s,
+            "exports": {"c_fhe_*": sum(n.startswith("c_fhe_") for n in names),
+                        "others": sorted(n for n in names
+                                         if not n.startswith("c_fhe_"))},
+            "ops_equal_to_torch_app": len(outs),
+            "size_one_equal_to_native_app": [name for name, _, _ in size1],
+            "launches": counts, "host_test": hosts, "host_test_s": host_s,
+            "zstd_source": zstd_source,
+            "zstd_canonical": cpu.zstd_canonical()}, cpu
+
+
+def phase_c_abi(torch_app: FheApp, native_app: FheApp, user_keys,
+                calldata: dict, rows: dict, card: str) -> dict:
     """Builds ``libc_fhe.so`` and ``host_test.c``, runs the host as its own
     process (a C ``main``, its own interpreter, the default app: the torch
     engine on the card; it must print HOST TEST PASSED), then calls the 49
     precompiles through the ctypes view in this process, on the default
     app: each gives the torch app's code 0 and bytes and launches the
-    kernels phase app counted for its class.  Then the host milliseconds of
-    a call through the ABI against ``FheApp.call`` by op class."""
+    kernels phase app counted for its class.  Then the CPU library
+    (``cpu_library_checks``).  Then the host milliseconds of a call through
+    each library against ``FheApp.call`` by op class."""
     t0 = time.perf_counter()
     lib = native.build()
     exe = native.build_host_test()
     build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    proc = subprocess.run([exe], capture_output=True, text=True, timeout=600)
-    host_s = time.perf_counter() - t0
-    if proc.returncode != 0 or "HOST TEST PASSED" not in proc.stdout:
-        raise AssertionError(f"host_test: exit {proc.returncode}\n"
-                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    host_lines, host_s = run_host([exe], "host_test")
 
     abi = native.NativeFhe(lib)
     native.use_app(None)
@@ -1989,26 +2354,29 @@ def phase_c_abi(torch_app: FheApp, calldata: dict, rows: dict,
     for k in KERNEL_NAMES:
         rows[k]["launches_abi"] = totals[k]
 
-    ms = {"abi": {}, "app": {}}
+    cpu, cpu_abi = cpu_library_checks(torch_app, native_app, user_keys,
+                                      calldata)
+    ms = {"abi": {}, "app": {}, "cpu_abi": {}}
     for cls, name in APP_TIMED.items():
         data = calldata[name]
-        abi_t, app_t = [], []
+        times = {label: [] for label in ms}
         for _ in range(15):             # in turns
-            for fn, out in ((abi.call, abi_t), (torch_app.call, app_t)):
+            for label, fn in (("abi", abi.call), ("app", torch_app.call),
+                              ("cpu_abi", cpu_abi.call)):
                 t0 = time.perf_counter()
                 code, _ = fn(name, data)
                 torch.cuda.synchronize()
-                out.append((time.perf_counter() - t0) * 1e3)
+                times[label].append((time.perf_counter() - t0) * 1e3)
                 if code:
                     raise AssertionError(f"timed {name}: code {code}")
-        ms["abi"][cls] = statistics.median(abi_t)
-        ms["app"][cls] = statistics.median(app_t)
+        for label, t in times.items():
+            ms[label][cls] = statistics.median(t)
     return {"phase": "c_abi", "ok": True, "card": card,
             "library": os.path.relpath(lib), "build_s": build_s,
-            "host_test": proc.stdout.strip().splitlines(),
-            "host_test_s": host_s,
+            "host_test": host_lines, "host_test_s": host_s,
             "ops_equal_to_torch_app": len(PRECOMPILE_NAMES),
-            "launches": totals, "ms_median": ms}
+            "launches": totals, "cpu_library": cpu, "ms_median": ms,
+            "host_cpu": host_cpu()}
 
 
 def main() -> int:
@@ -2058,7 +2426,8 @@ def main() -> int:
     inputs, host_cts = main_path.pop("inputs"), main_path.pop("host_cts")
     emit(main_path)
     emit(phase_round_trip(eng, rows, keys, host_cts))
-    emit(phase_timing(eng, inputs, card, rows))
+    timing = phase_timing(eng, inputs, card, rows)
+    emit(timing)
     emit(phase_four_step_path(eng4, eng, rows, keys, host_cts, inputs, card))
     torch_app = FheApp(TESTNET_ONE, engine="torch")
     golden = FheApp(TESTNET_ONE, engine="golden")
@@ -2067,7 +2436,11 @@ def main() -> int:
     emit(app)
     emit(phase_serve(torch_app, golden, user_keys, calldata, rows, card,
                      codec_build))
-    emit(phase_c_abi(torch_app, calldata, rows, card))
+    native_app = FheApp(TESTNET_ONE, engine="native")
+    emit(phase_native_engine(native_app, torch_app, golden, user_keys,
+                             calldata, timing, card))
+    emit(phase_soak(torch_app, golden, user_keys, calldata, rows, card))
+    emit(phase_c_abi(torch_app, native_app, user_keys, calldata, rows, card))
 
     print(card, flush=True)
     emit({"kernels": [rows[name] for name in KERNEL_NAMES]})

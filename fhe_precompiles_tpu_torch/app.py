@@ -9,10 +9,11 @@ reference's ``src/fhe.rs:56-780``.
   public_key_bytes (fhe.rs:578-779).
 * Error codes on failure follow lib.rs:14-27 via FheError.
 
-The compute engine is the golden host model (default, canonical bytes) or
-the port's ``TorchEngine`` on the device the caller names (the card by
-default) -- both produce identical ciphertext bytes, so validators on
-different hardware stay in consensus.
+The compute engine is the golden host model (default, canonical bytes), the
+port's ``TorchEngine`` on the device the caller names (the card by default)
+or the C++ host engine on the CPU (``native/engine.py``) -- all three
+produce identical ciphertext bytes, so validators on different hardware
+stay in consensus.
 """
 from __future__ import annotations
 
@@ -97,11 +98,14 @@ class FheApp:
     """Precompile runtime bound to one parameter set + the network keypair.
 
     Mirrors ``FheApp`` (fhe.rs:56-131).  `engine` selects the compute
-    backend: "golden" (canonical numpy reference) or "torch"
-    (``TorchEngine`` on `device`, the card unless the caller names another;
-    without a card it raises, as ``TorchEngine`` does) -- both emit
-    byte-identical ciphertexts (tests/test_torch_app.py).  `device` is used
-    by "torch" only.
+    backend: "golden" (canonical numpy reference), "torch" (``TorchEngine``
+    on `device`, the card unless the caller names another; without a card
+    it raises, as ``TorchEngine`` does) or "native" (``NativeEngine``, the
+    C++ host engine on the CPU: the CPU validator's engine, chosen by name,
+    never in place of a missing card) -- all three emit byte-identical
+    ciphertexts (tests/test_torch_app.py,
+    tests/test_torch_native_byte_path.py).  `device` is used by "torch"
+    only.
     """
 
     def __init__(self, params: Params,
@@ -125,16 +129,22 @@ class FheApp:
             self._engine = self.ctx
         elif engine == "torch":
             self._engine = TorchEngine(params, device=device, golden=self.ctx)
+        elif engine == "native":
+            from .native.engine import NativeEngine
+            self._engine = NativeEngine(params, golden=self.ctx)
         else:
             raise ValueError(f"unknown engine {engine!r} "
-                             "(expected 'golden' or 'torch')")
+                             "(expected 'golden', 'torch' or 'native')")
 
     # ------------------------------------------------------------------
     # key generation (fhe.rs:133-136; galois keys stripped per fhe.rs:34-44)
     # ------------------------------------------------------------------
     def generate_keys(self):
-        # TorchEngine has no keygen: keys come from the golden model
-        return self.ctx.generate_keys()
+        # an engine with keygen (native C++) makes the golden model's keys
+        # bit for bit (test_torch_native_engine.py); TorchEngine has none
+        eng = self._engine
+        return (eng if hasattr(eng, "generate_keys") else self.ctx
+                ).generate_keys()
 
     # ------------------------------------------------------------------
     # core arithmetic dispatch

@@ -13,19 +13,34 @@
  * fhe_precompiles_tpu_torch/_build/libc_fhe.so; link a host with
  *   gcc host.c -I<this directory> -L<_build> -lc_fhe -Wl,-rpath,<_build>
  *
- * libc_fhe_native.so (precompiles.cpp over host_engine.cpp, no Python;
- * built by fhe_precompiles_tpu_torch.ops.build.build_native_codec())
- * exports only the fhe_tpu_* codec extension declared at the end of this
- * header and fhe_free, which ByteServer(codec="native") drives; its own
- * c_fhe_* definitions stay local (native/codec_exports.map).
+ * libc_fhe_cpu.so exports the same 51 symbols computed on the CPU, with
+ * no Python and no card: precompiles.cpp over the C++ host engine
+ * (host_engine.cpp), built by fhe_precompiles_tpu_torch.native.build_cpu()
+ * into _build/, with its static form _build/libc_fhe_cpu.a.  It also
+ * exports fhe_tpu_init_keys, fhe_tpu_use_libzstd and fhe_tpu_zstd_canonical
+ * (declared below), by which a host names its network keys and its zstd
+ * build before its first call (native/cpu_exports.map).  Link
+ *   gcc host.c -I<this directory> -L<_build> -lc_fhe_cpu -Wl,-rpath,<_build>
+ * or, statically,
+ *   gcc host.c <_build>/libc_fhe_cpu.a -l:libzstd.so.1 -ldl -lpthread \
+ *       -lstdc++ -lm
+ * The library a host links names the device: -lc_fhe computes on the
+ * card, -lc_fhe_cpu on the CPU, and neither falls back to the other.
+ *
+ * libc_fhe_native.so (the same two sources; built by
+ * fhe_precompiles_tpu_torch.ops.build.build_native_codec()) exports only
+ * the fhe_tpu_* codec extension declared at the end of this header and
+ * fhe_free, which ByteServer(codec="native") drives; its own c_fhe_*
+ * definitions stay local (native/codec_exports.map).
  *
  * Contract (identical to the reference):
  *   - return 0 on success; *output is a malloc'd buffer of *output_length
  *     bytes the CALLER must release with fhe_free().
  *   - nonzero return = stable error code 1..7 (see fhe_error()); *output
  *     is NULL and *output_length is 0.
- *   - every function is thread-safe (calls enter the interpreter one at a
- *     time through the GIL).
+ *   - every function is thread-safe (libc_fhe.so: calls enter the
+ *     interpreter one at a time through the GIL; libc_fhe_cpu.so: a const
+ *     context and per-thread scratch).
  *
  * Calldata formats (src/pack.rs parity):
  *   binary ops   [u32 BE off1][u32 BE off2][public_key][a][b]
@@ -86,8 +101,10 @@ FHE_PRECOMPILE_LIST(FHE_PRECOMPILE_DECLARE)
 #undef FHE_PRECOMPILE_DECLARE
 
 /* ------------------------------------------------------------------------
- * Batched codec extension (libc_fhe_native.so only; NOT part of the
- * 51-symbol reference surface, and not exported by libc_fhe.so).
+ * Batched codec extension (libc_fhe_native.so; NOT part of the 51-symbol
+ * reference surface, and not exported by libc_fhe.so; libc_fhe_cpu.so
+ * exports fhe_tpu_init_keys, fhe_tpu_use_libzstd and
+ * fhe_tpu_zstd_canonical of it).
  *
  * These split each precompile at the decode/compute boundary so a serving
  * host can run the codec (zstd + bincode/SEAL + plaintext encoding + all

@@ -1,17 +1,27 @@
-/* Standalone C host test: links the port's libc_fhe.so as a node would
- * (the reference's staticlib consumer model, Cargo.toml:7).
+/* Standalone C host test: links the port's C ABI as a node would (the
+ * reference's staticlib consumer model, Cargo.toml:7), either library.
  *
- *   python3 -c 'from fhe_precompiles_tpu_torch import native; native.build()'
- *   gcc host_test.c -o host_test -L../_build -lc_fhe -lpthread \
- *       -Wl,-rpath,<absolute path of _build>
+ *   python3 -c 'from fhe_precompiles_tpu_torch import native; \
+ *               print(native.build_host_test())'          # -lc_fhe
  *   ./host_test              # on a machine with a CUDA card
  *   ./host_test --no-card    # on a machine without one
  *
- * On the card: public_key_bytes, encrypt_u256 -> decrypt_u256 round trip,
- * the error path and four host threads, all through the C ABI with an
- * embedded interpreter; prints HOST TEST PASSED.  With --no-card: every one
- * of the 49 precompiles must return 7 (the default app needs the card and
- * nothing falls back); prints NO-CARD TEST PASSED.
+ *   native.build_host_test("cpu")          # -lc_fhe_cpu: host_test_cpu
+ *   native.build_host_test("cpu_static")   # libc_fhe_cpu.a: host_test_cpu_static
+ *   ./host_test_cpu                        # any machine
+ *   ./host_test_cpu_static --keys network.pub network.pri
+ *
+ * Default mode: public_key_bytes, encrypt_u256 -> decrypt_u256 round trip,
+ * the error path and four host threads, all through the C ABI; prints HOST
+ * TEST PASSED.  Against libc_fhe.so (an embedded interpreter, the torch
+ * engine) it needs the card; against libc_fhe_cpu.so it computes on the
+ * CPU.  With --no-card (libc_fhe.so, no card): every one of the 49
+ * precompiles must return 7 (nothing falls back); prints NO-CARD TEST
+ * PASSED.  With --keys PUB PRI (the CPU library, compiled with
+ * -DFHE_CPU_LIBRARY): hands the two key files' bytes to fhe_tpu_init_keys
+ * before the first call, then runs the default mode.  A static host needs
+ * it: the library finds its data/ directory relative to the shared object
+ * it was loaded from, and a static host has none.
  */
 #include <pthread.h>
 #include <stdint.h>
@@ -57,9 +67,56 @@ static int no_card(void) {
   return 0;
 }
 
+#ifdef FHE_CPU_LIBRARY
+static uint8_t *read_file(const char *path, size_t *len) {
+  FILE *f = fopen(path, "rb");
+  if (f == NULL) {
+    return NULL;
+  }
+  uint8_t *buf = NULL;
+  long size = -1;
+  if (fseek(f, 0, SEEK_END) == 0 && (size = ftell(f)) > 0 &&
+      fseek(f, 0, SEEK_SET) == 0 && (buf = malloc((size_t)size)) != NULL &&
+      fread(buf, 1, (size_t)size, f) != (size_t)size) {
+    free(buf);
+    buf = NULL;
+  }
+  fclose(f);
+  *len = size > 0 ? (size_t)size : 0;
+  return buf;
+}
+
+static int init_keys(const char *pub_path, const char *pri_path) {
+  size_t pub_len = 0, pri_len = 0;
+  uint8_t *pub = read_file(pub_path, &pub_len);
+  uint8_t *pri = read_file(pri_path, &pri_len);
+  int32_t code = (pub && pri) ? fhe_tpu_init_keys(pub, pub_len, pri, pri_len)
+                              : -1;
+  free(pub);
+  free(pri);
+  if (code != 0) {
+    fprintf(stderr, "fhe_tpu_init_keys(%s, %s): %d\n", pub_path, pri_path,
+            code);
+    return 1;
+  }
+  printf("keys from %s, %s\n", pub_path, pri_path);
+  return 0;
+}
+#endif
+
 int main(int argc, char **argv) {
   if (argc > 1 && strcmp(argv[1], "--no-card") == 0) {
     return no_card();
+  }
+  if (argc > 1 && strcmp(argv[1], "--keys") == 0) {
+#ifdef FHE_CPU_LIBRARY
+    if (argc != 4 || init_keys(argv[2], argv[3]) != 0) {
+      return 1;
+    }
+#else
+    fprintf(stderr, "--keys needs the CPU library (-DFHE_CPU_LIBRARY)\n");
+    return 2;
+#endif
   }
   uint8_t *out = NULL;
   int64_t out_len = 0;
@@ -107,7 +164,7 @@ int main(int argc, char **argv) {
   printf("error path OK: %s\n", msg);
   fhe_free((const uint8_t *)msg);
 
-  /* threaded calls: the embedded interpreter must release the GIL after
+  /* threaded calls: an embedded interpreter must release the GIL after
    * init so other host threads can enter (deadlocks if it does not). */
   pthread_t threads[4];
   int results[4] = {1, 1, 1, 1};

@@ -17,12 +17,23 @@ interpreter's headers, linked to its ``libpython`` as the JAX package's
 host links with ``-lc_fhe``; a hash of the sources and flags beside it says
 when to build again.
 
-``build_native_codec`` compiles ``native/precompiles.cpp`` and
+``build_native_objects`` compiles ``native/precompiles.cpp`` and
 ``native/host_engine.cpp`` (the C++ codec and host engine, no Python) with
-g++ into ``_build/libc_fhe_native.so``, with a stamp of the same kind; it
-exports the ``fhe_tpu_*`` calls and ``fhe_free`` alone
-(``native/codec_exports.map``).  It links libzstd by its runtime name,
-``-l:libzstd.so.1``, and declares the calls it makes in
+g++ into ``_build/precompiles.o`` and ``_build/host_engine.o``, once for
+every library linked from them:
+
+* ``build_native_codec``: ``_build/libc_fhe_native.so``, which exports the
+  ``fhe_tpu_*`` codec calls and ``fhe_free`` alone
+  (``native/codec_exports.map``);
+* ``build_native_cpu``: ``_build/libc_fhe_cpu.so``, the 51 symbols of the
+  C ABI computed on the CPU (``native/cpu_exports.map``), and its static
+  form ``_build/libc_fhe_cpu.a``;
+* ``build_host_engine``: ``_build/libhost_engine.so``, the engine's
+  ``he_*`` calls (``native/engine.py``).
+
+Each output has a stamp (a hash of its inputs and its command) and a lock
+beside it.  The libraries link libzstd by its runtime name,
+``-l:libzstd.so.1``, and ``precompiles.cpp`` declares the calls it makes in
 ``native/zstd_decls.h``: the card's machine has the library but neither
 ``zstd.h`` nor the ``libzstd.so`` link name, so the build is the same on
 every machine.
@@ -31,12 +42,14 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import sysconfig
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -46,12 +59,22 @@ BUILD_DIR = _PKG / "_build"
 # the shim strips three components of its own path (libc_fhe.so, _build/,
 # the package directory) to find the repository root
 C_ABI_LIB = BUILD_DIR / "libc_fhe.so"
-# the codec's library strips two components (libc_fhe_native.so, _build/)
-# to find the package's data/ directory
+# the C++ libraries strip two components of their own path (the library,
+# _build/) to find the package's data/ directory
 NATIVE_CODEC_LIB = BUILD_DIR / "libc_fhe_native.so"
+NATIVE_CPU_LIB = BUILD_DIR / "libc_fhe_cpu.so"
+NATIVE_CPU_STATIC = BUILD_DIR / "libc_fhe_cpu.a"
+HOST_ENGINE_LIB = BUILD_DIR / "libhost_engine.so"
 NATIVE_CODEC_SOURCES = ("precompiles.cpp", "host_engine.cpp", "c_fhe.h",
                         "zstd_canonical.h", "zstd_decls.h",
                         "codec_exports.map")
+# object -> its source and the headers of the port that source includes
+NATIVE_OBJECTS = {
+    "precompiles.o": ("precompiles.cpp", "c_fhe.h", "zstd_canonical.h",
+                      "zstd_decls.h"),
+    "host_engine.o": ("host_engine.cpp",),
+}
+CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17"]
 
 # --threads 0: the sources are compiled side by side, one job for each
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -155,6 +178,35 @@ def load_library(verbose: bool = False):
     return lib
 
 
+def stamped(out: Path, inputs, command) -> Path:
+    """Runs ``command(tmp)`` and renames ``tmp`` to `out`, unless the stamp
+    beside `out` (``<name>.sha256``) holds the hash of the `inputs` (files)
+    and of ``command(out)``; returns `out`.  Processes that build at once
+    take turns (a lock file beside it).  Raises if the command fails."""
+    h = hashlib.sha256()
+    for f in inputs:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(command(out)).encode())
+    digest = h.hexdigest()
+    stamp = out.with_name(out.name + ".sha256")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.with_name(out.name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.is_file() and stamp.is_file() and stamp.read_text() == digest:
+            return out
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        tmp.unlink(missing_ok=True)     # ar adds to an archive it finds
+        cmd = command(tmp)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cmd[0]} failed:\n" + " ".join(cmd) + "\n"
+                               + proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+        stamp.write_text(digest)
+    return out
+
+
 def c_abi_command(out: Path) -> list:
     """The g++ command that builds the shim into `out`, linked to the
     running interpreter's shared ``libpython`` (a standalone C host then
@@ -170,62 +222,78 @@ def c_abi_command(out: Path) -> list:
 def build_c_abi() -> Path:
     """Builds ``_build/libc_fhe.so`` if the sources or the command changed
     since the last build; returns its path.  Raises if g++ fails."""
-    h = hashlib.sha256()
-    for f in (NATIVE / "c_fhe.cpp", NATIVE / "c_fhe.h"):
-        h.update(f.read_bytes())
-    h.update(" ".join(c_abi_command(C_ABI_LIB)).encode())
-    stamp = C_ABI_LIB.with_name(C_ABI_LIB.name + ".sha256")
-    digest = h.hexdigest()
-    if (C_ABI_LIB.is_file() and stamp.is_file()
-            and stamp.read_text() == digest):
-        return C_ABI_LIB
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = C_ABI_LIB.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(c_abi_command(tmp), capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("g++ failed:\n" + " ".join(c_abi_command(tmp))
-                           + "\n" + proc.stdout + proc.stderr)
-    os.replace(tmp, C_ABI_LIB)
-    stamp.write_text(digest)
-    return C_ABI_LIB
+    return stamped(C_ABI_LIB, [NATIVE / "c_fhe.cpp", NATIVE / "c_fhe.h"],
+                   c_abi_command)
+
+
+def object_command(obj: str, out: Path) -> list:
+    """The g++ command that compiles object `obj` (a key of
+    ``NATIVE_OBJECTS``) into `out`: the JAX package's Makefile's flags
+    without its warnings."""
+    return ["g++", *CXX_FLAGS, "-c", str(NATIVE / NATIVE_OBJECTS[obj][0]),
+            "-o", str(out)]
+
+
+def _object(obj: str) -> Path:
+    return stamped(BUILD_DIR / obj, [NATIVE / f for f in NATIVE_OBJECTS[obj]],
+                   functools.partial(object_command, obj))
+
+
+def build_native_objects() -> list:
+    """Compiles ``precompiles.o`` and ``host_engine.o`` into ``_build/``
+    side by side, each unless its stamp is up to date; returns their
+    paths.  Every C++ library of the port links from these."""
+    with ThreadPoolExecutor(len(NATIVE_OBJECTS)) as pool:
+        return list(pool.map(_object, NATIVE_OBJECTS))
+
+
+def _objects() -> list:
+    return [str(BUILD_DIR / obj) for obj in NATIVE_OBJECTS]
 
 
 def native_codec_command(out: Path) -> list:
-    """The g++ command that builds the codec library into `out`.  Its
-    version script exports the ``fhe_tpu_*`` calls and ``fhe_free`` only:
-    the ``c_fhe_*`` and ``he_*`` names it compiles stay local, so that it
-    neither offers a C host a CPU path nor binds to ``libc_fhe.so``'s
-    names of the same spelling."""
-    return ["g++", "-O3", "-fPIC", "-std=c++17", "-shared",
-            str(NATIVE / "precompiles.cpp"), str(NATIVE / "host_engine.cpp"),
-            "-o", str(out), "-l:libzstd.so.1", "-ldl",
-            "-Wl,--version-script=" + str(NATIVE / "codec_exports.map")]
+    """The g++ command that links the codec library into `out` from the
+    two objects.  Its version script exports the ``fhe_tpu_*`` calls and
+    ``fhe_free`` only: the ``c_fhe_*`` and ``he_*`` names it holds stay
+    local, so that it neither offers a C host a path nor binds to
+    ``libc_fhe.so``'s names of the same spelling."""
+    return ["g++", "-shared", *_objects(), "-o", str(out), "-l:libzstd.so.1",
+            "-ldl", "-Wl,--version-script=" + str(NATIVE
+                                                   / "codec_exports.map")]
 
 
 def build_native_codec() -> Path:
-    """Builds ``_build/libc_fhe_native.so`` if the sources or the command
-    changed since the last build; returns its path.  Raises if g++ fails.
-    Processes that build at once take turns (a lock file beside it)."""
-    h = hashlib.sha256()
-    for name in NATIVE_CODEC_SOURCES:
-        h.update(name.encode())
-        h.update((NATIVE / name).read_bytes())
-    h.update(" ".join(native_codec_command(NATIVE_CODEC_LIB)).encode())
-    digest = h.hexdigest()
-    stamp = NATIVE_CODEC_LIB.with_name(NATIVE_CODEC_LIB.name + ".sha256")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(NATIVE_CODEC_LIB.with_name(NATIVE_CODEC_LIB.name + ".lock"),
-              "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if (NATIVE_CODEC_LIB.is_file() and stamp.is_file()
-                and stamp.read_text() == digest):
-            return NATIVE_CODEC_LIB
-        tmp = NATIVE_CODEC_LIB.with_suffix(f".{os.getpid()}.tmp")
-        cmd = native_codec_command(tmp)
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("g++ failed:\n" + " ".join(cmd) + "\n"
-                               + proc.stdout + proc.stderr)
-        os.replace(tmp, NATIVE_CODEC_LIB)
-        stamp.write_text(digest)
-    return NATIVE_CODEC_LIB
+    """Builds ``_build/libc_fhe_native.so`` (the objects first) unless it
+    is up to date; returns its path.  Raises if g++ fails."""
+    objs = build_native_objects()
+    return stamped(NATIVE_CODEC_LIB, objs + [NATIVE / "codec_exports.map"],
+                   native_codec_command)
+
+
+def native_cpu_command(out: Path) -> list:
+    """The g++ command that links the CPU library into `out` from the two
+    objects; ``native/cpu_exports.map`` exports the reference's 51 symbols
+    and the three ``fhe_tpu_*`` calls that name the keys and the zstd
+    build, and nothing else."""
+    return ["g++", "-shared", *_objects(), "-o", str(out), "-l:libzstd.so.1",
+            "-ldl", "-Wl,--version-script=" + str(NATIVE / "cpu_exports.map")]
+
+
+def build_native_cpu() -> Path:
+    """Builds ``_build/libc_fhe_cpu.so`` and its static form
+    ``_build/libc_fhe_cpu.a`` (the objects first), each unless it is up to
+    date; returns the shared library's path.  Raises if a step fails."""
+    objs = build_native_objects()
+    stamped(NATIVE_CPU_STATIC, objs,
+            lambda out: ["ar", "rcs", str(out), *_objects()])
+    return stamped(NATIVE_CPU_LIB, objs + [NATIVE / "cpu_exports.map"],
+                   native_cpu_command)
+
+
+def build_host_engine() -> Path:
+    """Builds ``_build/libhost_engine.so``, the C++ engine alone with its
+    ``he_*`` calls exported (``native/engine.py`` binds it), from
+    ``host_engine.o`` unless it is up to date; returns its path."""
+    obj = _object("host_engine.o")
+    return stamped(HOST_ENGINE_LIB, [obj],
+                   lambda out: ["g++", "-shared", str(obj), "-o", str(out)])

@@ -273,7 +273,10 @@ def test_engines_and_devices():
     on_cpu = FheApp(TESTNET_ONE, engine="torch", device="cpu")
     assert isinstance(on_cpu._engine, TorchEngine)
     assert on_cpu._engine.device.type == "cpu"
-    for bad in ("jax", "native", "cuda", ""):
+    # "native": the C++ host engine on the CPU, named by the caller
+    on_host = FheApp(TESTNET_ONE, engine="native")
+    assert type(on_host._engine).__name__ == "NativeEngine"
+    for bad in ("jax", "cuda", ""):
         with pytest.raises(ValueError, match="unknown engine"):
             FheApp(TESTNET_ONE, engine=bad)
     if not torch.cuda.is_available():

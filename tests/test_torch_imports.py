@@ -34,7 +34,8 @@ def test_every_submodule_is_listed():
                  "encoding", "metrics", "app", "testnet", "serialization",
                  "serialization.bincode", "serialization.seal",
                  "serialization.keyio", "serialization.zstd_probes",
-                 "serialization.zstd_codec", "native", "parallel",
+                 "serialization.zstd_codec", "native", "native.codec",
+                 "native.engine", "parallel",
                  "parallel.stream", "serve", "seal_compat",
                  "seal_compat.blake2xb", "seal_compat.prng",
                  "seal_compat.sampler", "seal_compat.encryptor"):

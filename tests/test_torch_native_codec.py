@@ -114,8 +114,13 @@ def test_library_builds_from_the_ports_sources_and_exports_both_surfaces(
     path = Path(cod.lib._name)
     assert path == build.NATIVE_CODEC_LIB
     assert path.parent.parent.name == "fhe_precompiles_tpu_torch"
+    # linked from the two objects, each compiled from the port's source
     cmd = build.native_codec_command(path)
-    sources = [Path(a) for a in cmd if a.endswith(".cpp")]
+    objects = [Path(a) for a in cmd if a.endswith(".o")]
+    assert {o.name for o in objects} == {"precompiles.o", "host_engine.o"}
+    assert all(o.parent == build.BUILD_DIR for o in objects)
+    sources = [Path(a) for o in objects
+               for a in build.object_command(o.name, o) if a.endswith(".cpp")]
     assert {s.name for s in sources} == {"precompiles.cpp",
                                          "host_engine.cpp"}
     assert all(s.parent == build.NATIVE for s in sources)
