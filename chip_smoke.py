@@ -37,8 +37,18 @@ codes, no kernel launched, and host ms a call against the torch app's; and
 phase soak, one window of 256 requests of the reference soak's mix through
 ``ByteServer(codec="native")`` run 3 + 8 times: every run byte-equal to
 the first, the same launches every run, host RSS growth under 60 MB,
-``torch.cuda.memory_allocated()`` flat across the measured runs. Before
-that it builds the CUDA
+``torch.cuda.memory_allocated()`` flat across the measured runs.  Last,
+phase multi_device, the port's mesh on ``torch.distributed``: an NCCL
+world of one in this process (``RequestStream`` over ``global_mesh()`` and
+the distributed NTT at D = 1, equal to the stream without a mesh and to
+the NTT kernels), then a gloo world of four ranks, this script in
+processes of its own (``--multi-device-rank``), all on the one card:
+the distributed NTT at D = 2 and 4, ``RequestStream`` on (dp, tp) =
+(2, 2) with limbs sharded and on (4, 1), ``pipeline_chain`` over four
+stages and ``ByteServer`` on dp = 4 with both codecs, every rank's result
+equal to the single-device one and its launches equal to those its
+batches imply.  The world's times are those of one card shared by four
+ranks, not a scaling figure.  Before all that it builds the CUDA
 kernels from ``fhe_precompiles_tpu_torch/csrc/`` and holds each of the ten
 (five BEHZ tail segments, forward and inverse butterfly NTT, forward and
 inverse four-step NTT, one four-step product) against its plain PyTorch
@@ -50,7 +60,8 @@ is 0, every word must be equal).
 Phases, one JSON line each: device, build, kernels, main_path, round_trip,
 timing, four_step_path, app (with the zstd codec that ran: ``zstandard``, or
 the machine's libzstd through ctypes where ``zstandard`` does not import),
-serve, native_engine (with the host CPU's model and cores), soak, c_abi.
+serve, native_engine (with the host CPU's model and cores), soak, c_abi,
+multi_device.
 Any failure ends the run with a non-zero exit code and without the last
 line. Then, in this order: the card's name and power limit as ``nvidia-smi``
 gives them, one ``{"kernels": [...]}`` line (per kernel: launches counted
@@ -60,7 +71,8 @@ least time the card could take, with its bytes and operations terms;
 ``launches_serve``, ``launches_serve_native``, ``launches_soak`` and
 ``launches_abi`` are the launches of phase serve's ``ByteServer.run`` with
 each codec, of one measured run of phase soak and of phase c_abi's 49
-calls through the card's library; ``ms``
+calls through the card's library, ``launches_mesh`` those of one rank's
+``RequestStream`` run on dp = 4 in phase multi_device; ``ms``
 is taken with the inputs cold in the cache and is the time ``bound_ms`` is
 held against, ``same_buffers_ms`` repeats one input set, ``path_ms`` is one
 call inside ``_mul_relin``, for the NTTs the call of the shape that ``ms``
@@ -80,6 +92,8 @@ import hashlib
 import importlib.metadata
 import json
 import os
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -91,6 +105,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fhe_precompiles_tpu_torch import (FheApp, PRECOMPILE_NAMES, convert,
                                        native, pack)
@@ -103,7 +118,12 @@ from fhe_precompiles_tpu_torch.ops import four_step as fsm
 from fhe_precompiles_tpu_torch.ops import ntt as nttm
 from fhe_precompiles_tpu_torch.ops.engine import TorchEngine
 from fhe_precompiles_tpu_torch.ops.modmath import csub_reduce
-from fhe_precompiles_tpu_torch.parallel import RequestStream
+from fhe_precompiles_tpu_torch.parallel import (RequestStream, make_mesh,
+                                                multihost)
+from fhe_precompiles_tpu_torch.parallel.dist_ntt import (
+    make_distributed_ntt, shard_coeff_axis)
+from fhe_precompiles_tpu_torch.parallel.mesh import Mesh
+from fhe_precompiles_tpu_torch.parallel.pipeline import pipeline_chain
 from fhe_precompiles_tpu_torch.params import (BENCH_N1024, BENCH_N8192,
                                               TESTNET_ONE)
 from fhe_precompiles_tpu_torch.serialization import keyio, zstd_codec
@@ -1971,7 +1991,8 @@ def phase_serve(torch_app: FheApp, golden: FheApp, user_keys, calldata: dict,
             "call_by_call_s": call_by_call_s,
             **python,
             "native": {"library": os.path.relpath(build.NATIVE_CODEC_LIB),
-                       "build_s": build_s, **native_out}}
+                       "build_s": build_s, **native_out},
+            "shared": (reqs, want, each)}
 
 
 def native_serve_counts(server: ByteServer, reqs, want, each) -> tuple:
@@ -2066,6 +2087,19 @@ def vmrss_kb() -> int:
     raise RuntimeError("no VmRSS in /proc/self/status")
 
 
+def serve_ciphertexts(golden: FheApp, pk) -> list:
+    """Phase serve's 16 distinct ciphertexts under `pk` (phase app's user
+    key), with their plain types: [(tname, Ciphertext)]."""
+    tnames = list(SCALARS)
+    out = []
+    for j in range(SERVE_DISTINCT):
+        t = tnames[j % len(tnames)]
+        out.append((t, golden.ctx.encrypt(
+            PLAIN_TYPES[t].encode(app_value(t, j + 1), golden.params), pk,
+            hashlib.sha512(f"serve 0 {j}".encode()).digest())))
+    return out
+
+
 def soak_requests(golden: FheApp, user_keys, calldata: dict,
                   window: int) -> list:
     """One window of ``tests/test_serve_soak.py``'s mix (48 add / sub /
@@ -2074,15 +2108,10 @@ def soak_requests(golden: FheApp, user_keys, calldata: dict,
     script's seed from phase serve's 16 distinct ciphertexts under phase
     app's user key, so that the pooled groups form; phase app's
     ``encrypt_u64`` and ``decrypt_u64`` calldata."""
-    ctx, prm = golden.ctx, golden.params
     pk = user_keys[0]
     key = types.SimpleNamespace(to_bytes=lambda b=pk.to_bytes(): b)
-    tnames = list(SCALARS)
-    cts = [(tnames[j % len(tnames)], _CT_CODEC.serialize(ctx.encrypt(
-        PLAIN_TYPES[tnames[j % len(tnames)]].encode(
-            app_value(tnames[j % len(tnames)], j + 1), prm), pk,
-        hashlib.sha512(f"serve 0 {j}".encode()).digest())))
-        for j in range(SERVE_DISTINCT)]
+    cts = [(t, _CT_CODEC.serialize(ct))
+           for t, ct in serve_ciphertexts(golden, pk)]
     rng = np.random.default_rng(SEED + 12)
     reqs = []
     for i in range(window):
@@ -2379,7 +2408,445 @@ def phase_c_abi(torch_app: FheApp, native_app: FheApp, user_keys,
             "host_cpu": host_cpu()}
 
 
+# ---------------------------------------------------------------------------
+# phase multi_device: the port's mesh on torch.distributed
+# ---------------------------------------------------------------------------
+
+MD_STREAM_REQUESTS = 256
+MD_SERVE_REQUESTS = 64
+MD_PIPE_M = 8
+MD_WORLD = 4
+MD_WORLD_LIMIT_S = 120
+MD_RUNS = 3                 # timed runs of each gate after it (median)
+MD_WORKERS = 2              # ByteServer threads a rank: 4 ranks, 8 cores
+MD_LABEL = "one card shared by 4 ranks, gloo through host memory"
+MD_DEVICE = "cuda:0"        # every rank's device: the one card
+MD_NTT_MESHES = {2: {"dp": 2, "sp": 2}, 4: {"sp": 4}}
+MD_STREAM_MESHES = {"dp2_tp2_shard_limbs": (2, 2, True),
+                    "dp4": (4, 1, False)}
+MD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "fhe_precompiles_tpu_torch", "_build", "multi_device")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sha256(x) -> str:
+    """Hex digest of a tensor's, an array's or a byte string's contents."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().contiguous().numpy()
+    if isinstance(x, np.ndarray):
+        x = np.ascontiguousarray(x).tobytes()
+    return hashlib.sha256(x).hexdigest()
+
+
+def response_digests(outs) -> list:
+    return [f"{code}:{sha256(payload)}" for code, payload in outs]
+
+
+def timed(fn):
+    """(fn(), host seconds), the card waited for on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def counted(fn):
+    """(fn(), seconds, launches): the counters set to 0 just before."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out, seconds = timed(fn)
+    return out, seconds, launch_counts()
+
+
+def chunk_calls(calls: dict, rows: int, cb: int = SERVE_MAX_BATCH) -> dict:
+    """Every kernel's launches of `calls` once a chunk of at most `cb` of
+    `rows` rows."""
+    return expected_counts({k: v * -(-rows // cb) for k, v in calls.items()})
+
+
+def python_serve_counts(server: ByteServer, reqs, each) -> dict:
+    """The launches ``server.run(reqs)`` makes with the python codec, on
+    one device or on each rank of a mesh: one ``_mul_relin`` a chunk of
+    ``max_batch`` multiplies of one key (the cipher∘cipher requests of
+    size 2 that decode), and their own call's launches (`each`) for the
+    requests that take the per-request path (ops the codec does not batch,
+    ciphertexts of another size); one that fails to decode launches
+    nothing."""
+    k, n = len(TESTNET_ONE.ct_moduli), TESTNET_ONE.n
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    muls: dict = {}
+    for (name, data), calls in zip(reqs, each):
+        if name not in PRECOMPILE_NAMES:
+            continue
+        if BINARY_SPECS.get(name, ("", ""))[1] != "cc":
+            for key, v in calls.items():
+                counts[key] += v
+            continue
+        try:
+            op, key, _pk, a, b = server._decode_cc(name, data)
+        except Exception:
+            continue
+        if a.data.shape != (2, k, n) or b.data.shape != a.data.shape:
+            for key, v in calls.items():
+                counts[key] += v
+            continue
+        muls[key] = muls.get(key, 0) + (op == "mul")
+    for m in muls.values():
+        for key, v in chunk_calls(CALLS_PER_MUL_RELIN, m,
+                                  server.max_batch).items():
+            counts[key] += v
+    return counts
+
+
+def multi_device_rank(rank: int, address: str, root: str) -> int:
+    """One rank of phase multi_device's gloo world on the card (this script
+    run with ``--multi-device-rank``): the distributed NTT, RequestStream
+    on two meshes, pipeline_chain and ByteServer with both codecs, each
+    gate run with the launch counters set to 0 just before, then timed;
+    writes ``rank<r>.json`` under `root` (digests, launches, the launches
+    its batches imply, seconds).  It loads the kernel library the main
+    process built and builds nothing."""
+    with open(os.path.join(root, "inputs.json")) as f:
+        meta = json.load(f)
+    if not os.path.isfile(meta["kernel_library"]):
+        raise RuntimeError("the kernel library is not built")
+    build.load_library()
+    if build.build_seconds is not None or \
+            build._lib._name != meta["kernel_library"]:
+        raise RuntimeError("a rank built the kernel library")
+    device = MD_DEVICE
+    multihost.initialize(address, MD_WORLD, rank, device=device,
+                         backend="gloo")
+    # every rank builds every mesh, in this order
+    ntt_meshes = {d: Mesh(shape, device=device)
+                  for d, shape in MD_NTT_MESHES.items()}
+    stream_meshes = {name: make_mesh(dp, tp, device=device)
+                     for name, (dp, tp, _) in MD_STREAM_MESHES.items()}
+    pp = Mesh({"pp": MD_WORLD}, device=device)
+    app = FheApp(TESTNET_ONE, engine="torch", device=device)
+    eng = app._engine
+    data = np.load(os.path.join(root, "inputs.npz"))
+    out: dict = {"rank": rank, "ntt": {}, "stream": {}, "serve": {}}
+
+    rows = data["ntt_rows"]
+    tb = eng.ntts["all"].tables
+    for d, mesh in ntt_meshes.items():
+        fwd, inv = make_distributed_ntt(tb, mesh)
+        x = shard_coeff_axis(rows, mesh)
+        y, _s, fwd_counts = counted(lambda: fwd(x))
+        z, _s, inv_counts = counted(lambda: inv(y))
+        out["ntt"][d] = {
+            "sp_index": mesh.axis_index("sp"), "fwd_sha256": sha256(y),
+            "round_trip_equal": bool(torch.equal(z, x)),
+            "fwd_s": [timed(lambda: fwd(x))[1] for _ in range(MD_RUNS)],
+            "inv_s": [timed(lambda: inv(y))[1] for _ in range(MD_RUNS)],
+            "launches": {k: fwd_counts[k] + inv_counts[k]
+                         for k in KERNEL_NAMES}}
+
+    pk = types.SimpleNamespace(
+        relin=types.SimpleNamespace(data=data["rk"]))
+    reqs = RequestStream(eng).make_mixed_requests(
+        [types.SimpleNamespace(data=c) for c in data["cts"]],
+        MD_STREAM_REQUESTS, seed=meta["stream_seed"])
+    muls = sum(r.op == "mul" for r in reqs)
+    for name, (_dp, _tp, limbs) in MD_STREAM_MESHES.items():
+        stream = RequestStream(eng, mesh=stream_meshes[name],
+                               shard_limbs=limbs)
+        res, gate_s, counts = counted(lambda: stream.run(reqs, pk))
+        runs = [timed(lambda: stream.run(reqs, pk)) for _ in range(MD_RUNS)]
+        out["stream"][name] = {
+            "sha256": [sha256(r) for r in res],
+            "repeats_equal": all(all(np.array_equal(a, b)
+                                     for a, b in zip(again, res))
+                                 for again, _s in runs),
+            "launches": counts,
+            "expected_launches": chunk_calls(CALLS_PER_MUL_RELIN, muls),
+            "gate_s": gate_s, "run_s": [s for _r, s in runs]}
+
+    rk = convert.relin_keys_from_numpy(data["rk"], device)
+    mbs = convert.from_numpy(data["pipe_mbs"], device)
+
+    def chain():
+        return pipeline_chain(lambda x, key: eng._mul_relin(x, x, key), pp,
+                              mbs, rk)
+    res, gate_s, counts = counted(chain)
+    runs = [timed(chain)[1] for _ in range(MD_RUNS)]
+    out["pipeline"] = {
+        "sha256": [sha256(r) for r in res], "launches": counts,
+        "expected_launches": expected_counts(
+            {k: v * MD_PIPE_M for k, v in CALLS_PER_MUL_RELIN.items()}),
+        "gate_s": gate_s, "run_s": runs}
+
+    blob, offsets = data["serve_blob"].tobytes(), data["serve_offsets"]
+    serve_reqs = [(name, blob[offsets[i]:offsets[i + 1]])
+                  for i, name in enumerate(meta["serve_names"])]
+    each = meta["serve_each"]
+    codes = [(code, None) for code in meta["serve_codes"]]
+    for codec in ("python", "native"):
+        with ByteServer(TESTNET_ONE, mesh=stream_meshes["dp4"], app=app,
+                        codec=codec, workers=MD_WORKERS) as server:
+            expected = (python_serve_counts(server, serve_reqs, each)
+                        if codec == "python" else
+                        native_serve_counts(server, serve_reqs, codes,
+                                            each)[0])
+            got, gate_s, counts = counted(lambda: server.run(serve_reqs))
+            runs = [timed(lambda: server.run(serve_reqs))
+                    for _ in range(MD_RUNS)]
+            out["serve"][codec] = {
+                "digests": response_digests(got),
+                "repeats_equal": all(again == got for again, _s in runs),
+                "launches": counts, "expected_launches": expected,
+                "fallbacks": dict(server.fallbacks),
+                "pooled": dict(server.pooled),
+                "gate_s": gate_s, "run_s": [s for _r, s in runs]}
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def start_ranks(flag: str, world: int, root: str) -> tuple:
+    """Starts `world` processes of this script with `flag`, a rank, a
+    rendezvous address and `root`, each logging to ``<root>/<flag
+    name>_rank<r>.log``; returns (processes, logs)."""
+    address = f"127.0.0.1:{free_port()}"
+    stem = flag.strip("-").replace("-", "_")
+    logs = [open(os.path.join(root, f"{stem}_rank{r}.log"), "w")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(r), address,
+         root], stdout=log, stderr=subprocess.STDOUT,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+        for r, log in enumerate(logs)]
+    return procs, logs
+
+
+def finish_ranks(procs, logs, limit_s: float, t0: float) -> list:
+    """Waits for `procs` until `limit_s` seconds after `t0`, kills every
+    one still running, and returns their exit codes (negative: killed)."""
+    try:
+        for p in procs:
+            p.wait(timeout=max(t0 + limit_s - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+        for log in logs:
+            log.close()
+    return [p.returncode for p in procs]
+
+
+def run_world(root: str) -> list:
+    """Starts the MD_WORLD ranks of ``multi_device_rank`` (this script in
+    processes of its own, all on the card); waits for them at most
+    MD_WORLD_LIMIT_S seconds, killing every one still running on the way
+    out.  Returns the ranks' records; raises if a rank fails or the limit
+    passes."""
+    t0 = time.monotonic()
+    procs, logs = start_ranks("--multi-device-rank", MD_WORLD, root)
+    rcs = finish_ranks(procs, logs, MD_WORLD_LIMIT_S, t0)
+    if any(rc != 0 for rc in rcs):
+        tails = []
+        for r, rc in enumerate(rcs):
+            with open(os.path.join(root,
+                                   f"multi_device_rank_rank{r}.log")) as f:
+                tails.append(f"--- rank {r} (exit {rc}):\n"
+                             + f.read()[-4000:])
+        print("\n".join(tails), file=sys.stderr, flush=True)
+        raise AssertionError("multi_device: a rank failed or the world ran "
+                             f"past {MD_WORLD_LIMIT_S} s")
+    records = []
+    for r in range(MD_WORLD):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            records.append(json.load(f))
+    return records
+
+
+def phase_multi_device(torch_app: FheApp, golden: FheApp, user_keys,
+                       serve_stream, rows: dict, card: str) -> dict:
+    """The port's multi-device layer on the one card.
+
+    A. An NCCL world of one in this process (``multihost.initialize`` with
+    an address, one process, rank 0): ``RequestStream`` over
+    ``global_mesh()`` on 256 mixed requests from phase serve's 16
+    ciphertexts, byte-equal to ``RequestStream(eng).run`` with one
+    ``_mul_relin`` a chunk of multiplies; ``make_distributed_ntt`` at
+    D = 1 on (128, 2, 5, 4096) rows, word-equal to the ``ntt`` kernel and,
+    inverse, to the ``intt`` kernel.  The group is destroyed before B.
+
+    B. A gloo world of 4 ranks on cuda:0 (``run_world``), with keys,
+    ciphertexts and calldata from this process through files: the
+    distributed NTT at D = 2 and 4, each rank's shard word-equal to the
+    butterfly kernel's slice and back again; ``RequestStream`` on
+    {"dp": 2, "tp": 2} with shard_limbs and on {"dp": 4}, each rank's list
+    byte-equal to A's; ``pipeline_chain`` with P = 4 and M = 8 squarings of
+    (1, 2, 2, 4096) ciphertexts equal to sequential ``_mul_relin``;
+    ``ByteServer(mesh={"dp": 4})`` with both codecs on the first 64 of
+    phase serve's requests, equal to call by call; on every rank each
+    gate's launches equal to those its batches imply.  Times of B are
+    those of one card shared by four ranks: not a scaling figure."""
+    t_phase = time.perf_counter()
+    eng = torch_app._engine
+    pk = user_keys[0]
+    cts = [ct for _t, ct in serve_ciphertexts(golden, pk)]
+    stream_seed = SEED + 13
+    reqs = RequestStream(eng).make_mixed_requests(cts, MD_STREAM_REQUESTS,
+                                                  seed=stream_seed)
+    muls = sum(r.op == "mul" for r in reqs)
+    plain = RequestStream(eng).run(reqs, pk)
+    x = ntt_rows(np.random.default_rng(SEED + 14), (BATCH, 2),
+                 eng.golden.q_mods + eng.golden.Bsk, eng.n)
+    tb = eng.ntts["all"].tables
+    want_fwd = nttm.ntt(x, tb)
+    want_inv = nttm.intt(want_fwd, tb)
+    torch.cuda.synchronize()
+
+    # ---- A: NCCL world of one --------------------------------------------
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        backend = dist.get_backend()
+        mesh = multihost.global_mesh()
+        meshed, a_stream_s, a_counts = counted(
+            lambda: RequestStream(eng, mesh=mesh).run(reqs, pk))
+        sp = Mesh({"sp": 1}, device=eng.device)
+        fwd, inv = make_distributed_ntt(tb, sp)
+        y, a_fwd_s, fwd_counts = counted(lambda: fwd(x))
+        z, a_inv_s, inv_counts = counted(lambda: inv(want_fwd))
+    finally:
+        dist.destroy_process_group()
+    if backend != "nccl":
+        raise AssertionError(f"multi_device A: backend {backend}")
+    if any(not np.array_equal(a, b) for a, b in zip(meshed, plain)):
+        raise AssertionError("multi_device A: the meshed stream differs")
+    if a_counts != chunk_calls(CALLS_PER_MUL_RELIN, muls):
+        raise AssertionError(f"multi_device A: launches {a_counts}")
+    if not (torch.equal(y, want_fwd) and torch.equal(z, want_inv)
+            and torch.equal(z, x)):
+        raise AssertionError("multi_device A: the D = 1 NTT differs")
+    if any(fwd_counts.values()) or any(inv_counts.values()):
+        raise AssertionError("multi_device A: the distributed NTT launched "
+                             "a kernel")
+
+    # ---- B: gloo world of four ranks on the card ----------------------------
+    rk = pk.relin.data
+    seq = []
+    rk_dev = convert.relin_keys_from_numpy(rk, eng.device)
+    for ct in cts[:MD_PIPE_M]:
+        v = dev(ct.data[None])
+        for _ in range(MD_WORLD):
+            v = eng._mul_relin(v, v, rk_dev)
+        seq.append(sha256(v))
+    serve_reqs, serve_want, serve_each = (part[:MD_SERVE_REQUESTS]
+                                          for part in serve_stream)
+    blob = b"".join(data for _n, data in serve_reqs)
+    offsets = np.cumsum([0] + [len(data) for _n, data in serve_reqs])
+    shutil.rmtree(MD_DIR, ignore_errors=True)
+    os.makedirs(MD_DIR)
+    try:
+        np.savez(os.path.join(MD_DIR, "inputs.npz"),
+                 ntt_rows=convert.to_numpy(x),
+                 cts=np.stack([ct.data for ct in cts]), rk=rk,
+                 pipe_mbs=np.stack([ct.data[None]
+                                    for ct in cts[:MD_PIPE_M]]),
+                 serve_blob=np.frombuffer(blob, dtype=np.uint8),
+                 serve_offsets=offsets)
+        with open(os.path.join(MD_DIR, "inputs.json"), "w") as f:
+            json.dump({"kernel_library": build._lib._name,
+                       "stream_seed": stream_seed,
+                       "serve_names": [name for name, _d in serve_reqs],
+                       "serve_codes": [code for code, _p in serve_want],
+                       "serve_each": serve_each}, f)
+        t0 = time.perf_counter()
+        ranks = run_world(MD_DIR)
+        world_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(MD_DIR, ignore_errors=True)
+
+    want_stream = [sha256(r) for r in plain]
+    want_serve = response_digests(serve_want)
+    bad = []
+    for rec in ranks:
+        r = rec["rank"]
+        for d, g in rec["ntt"].items():
+            S = eng.n // int(d)
+            s = g["sp_index"]
+            if g["fwd_sha256"] != sha256(want_fwd[..., s * S:(s + 1) * S]) \
+                    or not g["round_trip_equal"] or any(
+                        g["launches"].values()):
+                bad.append(f"rank {r} ntt D={d}")
+        for name, g in rec["stream"].items():
+            if g["sha256"] != want_stream or not g["repeats_equal"] or \
+                    g["launches"] != g["expected_launches"] or \
+                    g["launches"] != chunk_calls(CALLS_PER_MUL_RELIN, muls):
+                bad.append(f"rank {r} stream {name}")
+        g = rec["pipeline"]
+        if g["sha256"] != seq or g["launches"] != g["expected_launches"]:
+            bad.append(f"rank {r} pipeline")
+        for codec, g in rec["serve"].items():
+            if g["digests"] != want_serve or not g["repeats_equal"] or \
+                    g["launches"] != g["expected_launches"] or \
+                    g["fallbacks"].get("device") or \
+                    g["fallbacks"].get("encode"):
+                bad.append(f"rank {r} serve {codec}")
+    if bad:
+        raise AssertionError(f"multi_device B: {bad}")
+    if any(ranks[0]["stream"]["dp4"]["launches"][k] == 0
+           for k in CALLS_PER_MUL_RELIN):
+        raise AssertionError("multi_device B: a kernel of the path never ran")
+    for k in KERNEL_NAMES:
+        rows[k]["launches_mesh"] = ranks[0]["stream"]["dp4"]["launches"][k]
+
+    def median_ms(g):
+        return statistics.median(g["run_s"]) * 1e3
+    return {
+        "phase": "multi_device", "ok": True, "card": card,
+        "preset": "testnet.one", "seconds": time.perf_counter() - t_phase,
+        "nccl_world_of_one": {
+            "backend": backend, "mesh": mesh.shape,
+            "stream_requests": len(reqs), "mul": muls,
+            "stream_equal": True, "stream_s": a_stream_s,
+            "launches": a_counts, "ntt_rows": list(x.shape),
+            "ntt_d1_equal": True, "ntt_d1_fwd_ms": a_fwd_s * 1e3,
+            "ntt_d1_inv_ms": a_inv_s * 1e3},
+        "gloo_world": {
+            "label": MD_LABEL, "ranks": MD_WORLD, "world_s": world_s,
+            "every_gate_equal": True, "launches_as_derived": True,
+            "ntt_ms_median_rank0": {
+                d: {"fwd": statistics.median(g["fwd_s"]) * 1e3,
+                    "inv": statistics.median(g["inv_s"]) * 1e3}
+                for d, g in ranks[0]["ntt"].items()},
+            "stream_ms_median_rank0": {
+                name: median_ms(g)
+                for name, g in ranks[0]["stream"].items()},
+            "stream_launches_rank0": {
+                name: g["launches"] for name, g in ranks[0]["stream"].items()},
+            "pipeline": {"stages": MD_WORLD, "microbatches": MD_PIPE_M,
+                         "ms_median_rank0": median_ms(ranks[0]["pipeline"]),
+                         "launches_rank0": ranks[0]["pipeline"]["launches"]},
+            "serve": {
+                codec: {"requests": len(serve_reqs), "workers": MD_WORKERS,
+                        "smoke_run_s_median_rank0": median_ms(g) / 1e3,
+                        "run_s_by_rank": [rec["serve"][codec]["run_s"]
+                                          for rec in ranks],
+                        "launches_rank0": g["launches"],
+                        "fallbacks_rank0": g["fallbacks"],
+                        "pooled_rank0": g["pooled"]}
+                for codec, g in ranks[0]["serve"].items()}}}
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--multi-device-rank"]:
+        return multi_device_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs one CUDA card", file=sys.stderr)
@@ -2434,13 +2901,17 @@ def main() -> int:
     app = phase_app(torch_app, golden, rows, card)
     user_keys, calldata = app.pop("shared")
     emit(app)
-    emit(phase_serve(torch_app, golden, user_keys, calldata, rows, card,
-                     codec_build))
+    serve = phase_serve(torch_app, golden, user_keys, calldata, rows, card,
+                        codec_build)
+    serve_stream = serve.pop("shared")
+    emit(serve)
     native_app = FheApp(TESTNET_ONE, engine="native")
     emit(phase_native_engine(native_app, torch_app, golden, user_keys,
                              calldata, timing, card))
     emit(phase_soak(torch_app, golden, user_keys, calldata, rows, card))
     emit(phase_c_abi(torch_app, native_app, user_keys, calldata, rows, card))
+    emit(phase_multi_device(torch_app, golden, user_keys, serve_stream, rows,
+                            card))
 
     print(card, flush=True)
     emit({"kernels": [rows[name] for name in KERNEL_NAMES]})

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import hashlib
 import importlib.resources
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 from . import pack
 from .bfv.golden import BfvContext, Ciphertext, PublicKey
@@ -61,21 +61,26 @@ class _CachedPkCodec(pack.ObjectCodec):
         self._order: "list[bytes]" = []
 
     def deserialize(self, data: bytes) -> PublicKey:
+        return self.deserialize_keyed(data)[1]
+
+    def deserialize_keyed(self, data: bytes) -> Tuple[bytes, PublicKey]:
+        """(the SHA-256 of `data`, its key): ``ByteServer`` groups requests
+        by the digest, which is equal for equal bytes also where an
+        eviction gave them a second object."""
         key = hashlib.sha256(data).digest()
         hit = self._cache.get(key)
         if hit is not None:
-            return hit
+            return key, hit
         obj = super().deserialize(data)
-        # threads that parse the same key at once all get the first parse:
-        # one object for each distinct key's bytes (ByteServer groups by it)
+        # threads that parse the same key at once all get the first parse
         hit = self._cache.setdefault(key, obj)
         if hit is not obj:
-            return hit
+            return key, hit
         self._order.append(key)
         if len(self._order) > self._MAX:
             evict = self._order.pop(0)
             self._cache.pop(evict, None)
-        return obj
+        return key, obj
 
 
 _PK_CODEC = _CachedPkCodec()

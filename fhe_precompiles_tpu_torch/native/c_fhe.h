@@ -157,15 +157,20 @@ int32_t fhe_tpu_zstd_canonical(void);
  * legal data the caller must route to the one-shot path); cp/pc fill
  * ct<-the ciphertext operand and other<-the encoded (n,) plaintext poly
  * (other_size = 0).  *pk_handle receives an owned reference: release
- * with fhe_tpu_pk_release; group batches by fhe_tpu_pk_id. */
+ * with fhe_tpu_pk_release; group batches by fhe_tpu_pk_digest. */
 int32_t fhe_tpu_unpack_binary(const char *name, const uint8_t *data,
                               size_t data_len, uint64_t *ct, uint64_t *other,
                               int32_t *shape, int32_t *op, uint64_t *ct_size,
                               uint64_t *other_size, void **pk_handle);
 
-/* Stable identity of the parsed public key while the handle is held
- * (equal ids <=> byte-identical pk blobs). */
+/* Identity of the parsed key's cache entry while the handle is held
+ * (equal ids => byte-identical pk blobs; a key evicted and parsed again
+ * gets a second entry and id). */
 int32_t fhe_tpu_pk_id(void *pk_handle, uint64_t *id);
+
+/* The BLAKE2b-256 digest of the pk blob's bytes (32 bytes into digest):
+ * equal for equal bytes, across evictions too. */
+int32_t fhe_tpu_pk_digest(void *pk_handle, uint8_t *digest);
 
 /* Copy the key's relinearization block (k_ct, 2, k_key, n); 7 if the key
  * carries none. */
@@ -200,7 +205,7 @@ int32_t fhe_tpu_decode_scalar(const char *tname, const uint64_t *poly,
  * device decrypt, fhe_tpu_reencrypt_finish turns the (n,) poly into the
  * re-encoded plaintext + the full-input-bound 64-byte seed (5 on decode
  * failure, 6 on encode failure); the caller then batch-encrypts under
- * the target keys (fhe_tpu_pk_data), grouped by fhe_tpu_pk_id. */
+ * the target keys (fhe_tpu_pk_data), grouped by fhe_tpu_pk_digest. */
 int32_t fhe_tpu_unpack_reencrypt(const uint8_t *data, size_t data_len,
                                  uint64_t *ct, uint64_t *ct_size,
                                  void **pk_handle);

@@ -80,6 +80,7 @@ def load_library() -> ctypes.CDLL:
             POINTER(c_int32), POINTER(c_uint64), POINTER(c_uint64),
             POINTER(c_void_p)]),
         "fhe_tpu_pk_id": (c_int32, [c_void_p, POINTER(c_uint64)]),
+        "fhe_tpu_pk_digest": (c_int32, [c_void_p, POINTER(c_uint8)]),
         "fhe_tpu_pk_relin": (c_int32, [c_void_p, _U64P]),
         "fhe_tpu_pk_data": (c_int32, [c_void_p, _U64P]),
         "fhe_tpu_pk_release": (None, [c_void_p]),
@@ -110,11 +111,13 @@ def load_library() -> ctypes.CDLL:
 class PkRef:
     """Owned reference to a parsed public key inside the library's LRU.
 
-    ``id`` is a stable grouping identity while the reference is held (equal
-    ids <=> byte-identical pk blobs).  Release explicitly (idempotent); the
-    finalizer is a backstop."""
+    ``id`` names the library's cache entry while the reference is held
+    (equal ids => byte-identical pk blobs; a key evicted and parsed again
+    gets a second entry); ``digest``, the BLAKE2b-256 of the blob, is equal
+    for equal bytes and is what requests are grouped by.  Release
+    explicitly (idempotent); the finalizer is a backstop."""
 
-    __slots__ = ("_lib", "_handle", "id")
+    __slots__ = ("_lib", "_handle", "id", "digest")
 
     def __init__(self, lib, handle: int):
         self._lib = lib
@@ -122,6 +125,9 @@ class PkRef:
         ident = c_uint64()
         lib.fhe_tpu_pk_id(handle, byref(ident))
         self.id = ident.value
+        digest = (c_uint8 * 32)()
+        lib.fhe_tpu_pk_digest(handle, digest)
+        self.digest = bytes(digest)
 
     def relin(self, k_ct: int, k_key: int, n: int) -> np.ndarray:
         """The key's (k_ct, 2, k_key, n) relin block (raises if absent)."""

@@ -1667,6 +1667,7 @@ struct App {
   struct CacheEntry {
     std::vector<u8> raw;
     PublicKey pk;
+    u8 digest[32];  // BLAKE2b-256 of raw: the host groups requests by it
   };
   // shared_ptr values: a caller's in-flight reference stays valid even if
   // another thread evicts the entry mid-call.
@@ -1820,7 +1821,15 @@ static std::shared_ptr<App::CacheEntry> parse_pk_cached(App* a, const u8* d,
   auto entry = std::make_shared<App::CacheEntry>();
   entry->raw.assign(d, d + len);
   entry->pk = load_public_key(d, len);  // may throw FheErr{3}
+  b2b::hash32(d, len, entry->digest);
   std::lock_guard<std::mutex> lock(a->cache_mu);
+  // a thread that parsed the same bytes meanwhile inserted first: its
+  // entry is the one, so that one key's bytes have one live entry
+  auto range = a->cache.equal_range(key);
+  for (auto it = range.first; it != range.second; ++it)
+    if (it->second->raw.size() == len &&
+        std::memcmp(it->second->raw.data(), d, len) == 0)
+      return it->second;
   auto ins = a->cache.emplace(key, entry);
   a->cache_order.push_back(ins);
   if (a->cache_order.size() > 16) {
@@ -2153,8 +2162,8 @@ static bool parse_binary_name(const char* name, Op* op, Shape* shape,
 //           ct_size/other_size = sizes
 //   cp/pc:  ct_out <- the ciphertext operand (iff size 2), other_out <-
 //           the encoded plaintext poly (n,), other_size = 0
-//   pk_handle <- owned reference (fhe_tpu_pk_release), pk identity via
-//   fhe_tpu_pk_id.  A ciphertext of size != 2 is NOT an error (add/sub of
+//   pk_handle <- owned reference (fhe_tpu_pk_release), grouped by
+//   fhe_tpu_pk_digest.  A ciphertext of size != 2 is NOT an error (add/sub of
 //   size-3 cts and any-size plain ops are legal): the caller must fall
 //   back to the one-shot path for those requests.
 static int32_t tpu_unpack_binary(const char* name, const u8* input,
@@ -2239,6 +2248,15 @@ static int32_t tpu_unpack_binary(const char* name, const u8* input,
 static int32_t tpu_pk_id(void* handle, u64* id) {
   if (!handle || !id) return 3;
   *id = (u64)(uintptr_t)static_cast<PkHandle*>(handle)->e.get();
+  return 0;
+}
+
+// The BLAKE2b-256 digest of the key's bytes (32 bytes): equal for equal
+// bytes, also across an eviction from the cache, which gives the same
+// bytes a second entry and id.
+static int32_t tpu_pk_digest(void* handle, u8* out) {
+  if (!handle || !out) return 3;
+  std::memcpy(out, static_cast<PkHandle*>(handle)->e->digest, 32);
   return 0;
 }
 
@@ -2369,7 +2387,7 @@ static int32_t tpu_decode_scalar(const char* tname, const u64* poly,
 // params checks in app.py _reencrypt order (ct -> 5, pk -> 6).  The
 // caller then batch-decrypts under the network key, finishes each item
 // with fhe_tpu_reencrypt_finish, and batch-encrypts under the target pk
-// (grouped by fhe_tpu_pk_id).  size != 2 -> route to the one-shot path.
+// (grouped by fhe_tpu_pk_digest).  size != 2 -> route to the one-shot path.
 static int32_t tpu_unpack_reencrypt(const u8* input, size_t len,
                                     u64* ct_out, u64* ct_size_out,
                                     void** pk_handle) {
@@ -2548,6 +2566,10 @@ int32_t fhe_tpu_unpack_binary(const char* name, const uint8_t* data,
 
 int32_t fhe_tpu_pk_id(void* pk_handle, uint64_t* id) {
   return fheabi::tpu_pk_id(pk_handle, id);
+}
+
+int32_t fhe_tpu_pk_digest(void* pk_handle, uint8_t* digest) {
+  return fheabi::tpu_pk_digest(pk_handle, digest);
 }
 
 int32_t fhe_tpu_pk_relin(void* pk_handle, uint64_t* rk_out) {

@@ -41,10 +41,29 @@ the C++ codec; the default moves to ``"native"``, and the python codec
 retires, once the native path has passed the soak test of identical windows
 (stable bytes, no growth of resident memory).
 
-A batch whose device phase raises degrades to ``FheApp.call`` request by
-request, with the same bytes; so does a result whose packing raises.  Such a
-degrade runs on the same engine and would hide a fault of the batched path,
-so every fallback is counted by its reason in ``ByteServer.fallbacks``.
+With a ``mesh`` (``parallel.mesh``) the server's ``RequestStream`` runs
+each batch of the cipher∘cipher groups over it, the batch on dp; every rank
+calls ``run`` with the same requests and returns the same bytes.  That is
+all a mesh changes, as in the JAX version: the native codec's pooled
+windows, its plain, encrypt and decrypt batches and the per-request path
+run whole on each rank's device.  A collective waits for every rank of its
+group, so every path that can reach one must be the same on every rank:
+the stream runs on the caller's thread in request order, requests are
+grouped by a digest of their key's bytes (the same groups on every rank,
+whichever thread parsed a key first), and continuous mode, whose windows
+form by arrival time, is refused under a mesh.  A stream batch that fails
+on any rank raises ``RankFault`` on every rank (``RequestStream``), and
+the server lets it leave ``run`` on every rank instead of degrading: a
+rank that degraded alone would pair its next collective with another
+batch's on the other ranks, and shards of one shape mix without an error.
+An error of a collective itself (``torch.distributed.DistError``) leaves
+``run`` too; it may leave the world out of step, to be started again.
+
+Otherwise a batch whose device phase raises degrades to ``FheApp.call``
+request by request, with the same bytes; so does a result whose packing
+raises.  Such a degrade runs on the same engine and would hide a fault of
+the batched path, so every fallback is counted by its reason in
+``ByteServer.fallbacks``.
 
 Per-request outputs, payload bytes and error codes alike, equal
 ``FheApp.call`` one at a time.
@@ -57,11 +76,13 @@ import os
 import queue
 import threading
 import time
+import types
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import convert, metrics, pack
 from .app import _CT_CODEC, _PK_CODEC, FheApp, PRECOMPILE_NAMES
@@ -69,6 +90,7 @@ from .bfv.golden import Ciphertext
 from .errors import FheError, FheErrorCode
 from .ops.engine import TorchEngine
 from .params import Params
+from .parallel.mesh import Mesh, RankFault
 from .parallel.stream import Request, RequestStream
 
 
@@ -121,6 +143,14 @@ def _digest(operand: np.ndarray) -> bytes:
     return hashlib.blake2b(operand, digest_size=16).digest()
 
 
+#: a stream's errors that leave ``run`` under a mesh instead of degrading
+_MESH_FAULTS = (RankFault, dist.DistError)
+
+#: ``_PK_CODEC`` giving (digest, key): requests are grouped by the digest
+_KEYED_PK_CODEC = types.SimpleNamespace(
+    deserialize=_PK_CODEC.deserialize_keyed)
+
+
 def _pk_refs(kind: str, payload) -> list:
     """The key references (``PkRef``) one ``_decode_native`` result holds:
     each must be released once the request's window is done with it."""
@@ -145,20 +175,25 @@ class ByteServer:
     """Serve byte-level precompile requests batched on the card (or on the
     CPU, for an app whose engine the caller put there)."""
 
-    def __init__(self, params: Params, workers: Optional[int] = None,
-                 max_batch: int = 128, app: Optional[FheApp] = None,
-                 codec: str = "python", zstd: Optional[str] = None):
+    def __init__(self, params: Params, mesh: Optional[Mesh] = None,
+                 workers: Optional[int] = None, max_batch: int = 128,
+                 app: Optional[FheApp] = None, codec: str = "python",
+                 zstd: Optional[str] = None):
         if codec not in ("python", "native"):
             raise ValueError(f"unknown codec {codec!r}")
         if zstd is not None and codec != "native":
             raise ValueError("zstd names the native codec's zstd build; "
                              "the python codec uses serialization/"
                              "zstd_codec.py")
-        self.app = app if app is not None else FheApp(params, engine="torch")
+        self.app = app if app is not None else FheApp(
+            params, engine="torch",
+            device=mesh.device if mesh is not None else "cuda")
         if not isinstance(self.app._engine, TorchEngine):
             raise ValueError("ByteServer requires an FheApp(engine='torch')")
         self.params = params
-        self.stream = RequestStream(self.app._engine, max_batch=max_batch)
+        self.mesh = mesh
+        self.stream = RequestStream(self.app._engine, mesh=mesh,
+                                    max_batch=max_batch)
         self.workers = workers or min(32, os.cpu_count() or 1)
         self.max_batch = max_batch
         #: requests a window of the native codec: one window decodes ahead
@@ -206,6 +241,10 @@ class ByteServer:
         comes first (``max_window`` defaults to two batches): an idle
         server answers a lone request within about flush_ms and one
         request's compute, a loaded one runs full windows back to back."""
+        if self.mesh is not None:
+            raise ValueError("continuous mode forms its windows by arrival "
+                             "time, which differs between ranks; over a "
+                             "mesh every rank must run the same batches")
         with self._lock:
             if self._cthread is not None:
                 raise RuntimeError("continuous mode already running")
@@ -278,13 +317,13 @@ class ByteServer:
     # ------------------------------------------------------------------
     def _decode_cc(self, name: str, data: bytes):
         """``FheApp._binary_op``'s decode and checks for a cipher∘cipher
-        op (same codecs, same order, same error codes): (op, pk, a, b) or
-        raises FheError."""
+        op (same codecs, same order, same error codes): (op, key, pk, a,
+        b), `key` the SHA-256 of the key's bytes, or raises FheError."""
         op, shape, _tname = BINARY_SPECS[name]
         if shape != "cc":
             raise ValueError(f"{name} is not a cipher∘cipher op")
-        pk, a, b = pack.unpack_binary_operation(
-            data, _PK_CODEC, _CT_CODEC, _CT_CODEC)
+        (key, pk), a, b = pack.unpack_binary_operation(
+            data, _KEYED_PK_CODEC, _CT_CODEC, _CT_CODEC)
         self.app._check_params(pk, FheErrorCode.RUNTIME_ERROR)
         self.app._check_params(a, FheErrorCode.RUNTIME_ERROR)
         self.app._check_params(b, FheErrorCode.RUNTIME_ERROR)
@@ -295,7 +334,7 @@ class ByteServer:
             # FheApp._run_op's guard on the relin key's parameter set
             raise FheError(FheErrorCode.RUNTIME_ERROR,
                            "relin key parameter set mismatch")
-        return op, pk, a, b
+        return op, key, pk, a, b
 
     def _count(self, reason: str, n: int = 1) -> None:
         with self._lock:
@@ -330,10 +369,10 @@ class ByteServer:
                     ) -> List[Tuple[int, bytes]]:
         k, n = len(self.params.ct_moduli), self.params.n
         results: List[Optional[Tuple[int, bytes]]] = [None] * len(requests)
-        # (idx, op, a, b) of the batchable requests, keyed by pk identity:
-        # the pk cache hands out one object for each distinct key's bytes
-        groups: Dict[int, list] = {}
-        pk_by_id: Dict[int, object] = {}
+        # (idx, op, a, b) of the batchable requests, keyed by the digest
+        # of their key's bytes
+        groups: Dict[bytes, list] = {}
+        pk_by_key: Dict[bytes, object] = {}
         fallback: List[int] = []
         t0 = time.perf_counter()
 
@@ -345,7 +384,7 @@ class ByteServer:
             if spec is None or spec[1] != "cc":
                 return i, "not_batchable", None
             try:
-                op, pk, a, b = self._decode_cc(name, data)
+                op, key, pk, a, b = self._decode_cc(name, data)
             except FheError as e:
                 return i, "err", int(e.code)
             except Exception:
@@ -353,28 +392,30 @@ class ByteServer:
             # only size-2 ciphertexts stack into one batch
             if a.data.shape != (2, k, n) or b.data.shape != a.data.shape:
                 return i, "ciphertext_size", None
-            return i, "batch", (op, pk, a, b)
+            return i, "batch", (op, key, pk, a, b)
 
         for i, kind, payload in self._pool.map(decode, range(len(requests))):
             if kind == "err":
                 results[i] = (payload, b"")
             elif kind == "batch":
-                op, pk, a, b = payload
-                groups.setdefault(id(pk), []).append((i, op, a, b))
-                pk_by_id[id(pk)] = pk
+                op, key, pk, a, b = payload
+                groups.setdefault(key, []).append((i, op, a, b))
+                pk_by_key.setdefault(key, pk)
             else:
                 fallback.append(i)
                 self._count(kind)
         t1 = time.perf_counter()
 
         # device phase: one RequestStream.run a public key; a group that
-        # raises degrades to the per-request path
+        # raises degrades to the per-request path (on a mesh: see above)
         encode_jobs: List[Tuple[int, np.ndarray]] = []
         for key, items in groups.items():
             try:
                 outs = self.stream.run(
                     [Request(op, a.data, b.data) for _, op, a, b in items],
-                    pk_by_id[key])
+                    pk_by_key[key])
+            except _MESH_FAULTS:
+                raise
             except Exception:
                 fallback.extend(i for i, *_ in items)
                 self._count("device", len(items))
@@ -606,8 +647,8 @@ class ByteServer:
         dev, cb = eng.device, self.max_batch
         pool = self._pool
         t1 = time.perf_counter()
-        cc_groups: Dict[int, list] = {}
-        pk_by_id: Dict[int, object] = {}
+        cc_groups: Dict[bytes, list] = {}
+        pk_by_key: Dict[bytes, object] = {}
         plain_jobs: Dict[str, list] = {}
         enc_jobs, dec_jobs, reenc_jobs = [], [], []
         for i, kind, payload in decoded:
@@ -629,8 +670,9 @@ class ByteServer:
                 plain_jobs.setdefault(fn, []).append((i, ct, other))
             else:  # cc
                 op, pk, a, b, digests = payload
-                cc_groups.setdefault(pk.id, []).append((i, op, a, b, digests))
-                pk_by_id.setdefault(pk.id, pk)
+                cc_groups.setdefault(pk.digest, []).append(
+                    (i, op, a, b, digests))
+                pk_by_key.setdefault(pk.digest, pk)
 
         # ---- device phase: every batch is fault-isolated -----------------
         encode_jobs: List[Tuple[int, np.ndarray]] = []
@@ -639,12 +681,14 @@ class ByteServer:
         def guarded(idxs, fn):
             try:
                 fn()
+            except _MESH_FAULTS:
+                raise
             except Exception:
                 fallback.extend(idxs)
                 self._count("device", len(idxs))
 
         for key, items in cc_groups.items():
-            def do_cc(items=items, pk=pk_by_id[key]):
+            def do_cc(items=items, pk=pk_by_key[key]):
                 rk_data = (pk.relin(cod.k, cod.kk, cod.n)
                            if any(it[1] == "mul" for it in items) else None)
                 pool_list, pairs = self._pool_operands(items)
@@ -728,7 +772,7 @@ class ByteServer:
                 except Exception:
                     return idx, None
 
-            re_groups: Dict[int, list] = {}
+            re_groups: Dict[bytes, list] = {}
             for idx, out in pool.map(finish, sorted(polys)):
                 i, _t, _c, pk = reenc_jobs[idx]
                 if out is None:
@@ -737,7 +781,7 @@ class ByteServer:
                 elif out[0]:
                     results[i] = (out[0], b"")
                 else:
-                    re_groups.setdefault(pk.id, []).append(
+                    re_groups.setdefault(pk.digest, []).append(
                         (i, out[1], out[2], pk))
             for items in re_groups.values():
                 for c0 in range(0, len(items), cb):

@@ -35,8 +35,10 @@ def test_every_submodule_is_listed():
                  "serialization.bincode", "serialization.seal",
                  "serialization.keyio", "serialization.zstd_probes",
                  "serialization.zstd_codec", "native", "native.codec",
-                 "native.engine", "parallel",
-                 "parallel.stream", "serve", "seal_compat",
+                 "native.engine", "parallel", "parallel.mesh",
+                 "parallel.multihost", "parallel.dist_ntt",
+                 "parallel.pipeline", "parallel.stream", "serve",
+                 "seal_compat",
                  "seal_compat.blake2xb", "seal_compat.prng",
                  "seal_compat.sampler", "seal_compat.encryptor"):
         assert "fhe_precompiles_tpu_torch." + want in names

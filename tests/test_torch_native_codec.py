@@ -19,6 +19,8 @@ import hashlib
 import importlib.util
 import re
 import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -44,7 +46,8 @@ NAMES_51 = ({f"c_fhe_{name}" for name in __import__(
                                                        "fhe_error"})
 TPU_NAMES = {"fhe_tpu_init_keys", "fhe_tpu_params", "fhe_tpu_use_libzstd",
              "fhe_tpu_zstd_canonical", "fhe_tpu_unpack_binary",
-             "fhe_tpu_pk_id", "fhe_tpu_pk_relin", "fhe_tpu_pk_release",
+             "fhe_tpu_pk_id", "fhe_tpu_pk_digest", "fhe_tpu_pk_relin",
+             "fhe_tpu_pk_release",
              "fhe_tpu_pack_ciphertext", "fhe_tpu_unpack_encrypt",
              "fhe_tpu_unpack_decrypt", "fhe_tpu_decode_scalar",
              "fhe_tpu_unpack_reencrypt", "fhe_tpu_reencrypt_finish",
@@ -130,7 +133,7 @@ def test_library_builds_from_the_ports_sources_and_exports_both_surfaces(
     assert {x: every.get(x) for x in NAMES_51} == {
         x: "T" if x == "fhe_free" else "t" for x in NAMES_51}
     assert every.get("he_multiply") == "t"
-    assert len(NAMES_51) == 51 and len(TPU_NAMES) == 15
+    assert len(NAMES_51) == 51 and len(TPU_NAMES) == 16
 
 
 def test_build_is_reused_until_the_sources_change(cod):
@@ -337,6 +340,31 @@ def test_pk_ids_equal_exactly_when_the_key_bytes_do(cod, ctx, keys):
         r.release()
         r.release()               # idempotent
         assert r._handle == 0
+
+
+def test_one_key_parsed_by_threads_at_once_has_one_entry(cod, ctx, keys):
+    """Threads that parse one key's new bytes at once get one cache entry
+    (one id); the digest is the BLAKE2b-256 of the key's bytes."""
+    pk = keys[0][0]
+    a = _ct(ctx, 1, "u64", pk, b"race")
+    for bump in (1, 2, 3):      # bytes the cache has not seen yet
+        data = pk.data.copy()
+        data[0, 0, 0] = (int(data[0, 0, 0]) + bump) % P.key_moduli[0]
+        fresh = type(pk)(pk.params, data, pk.relin)
+        blob = pack.pack_binary_operation(fresh, a, _CT_CODEC, a, _CT_CODEC)
+        start = threading.Barrier(8)
+
+        def unpack():
+            start.wait()
+            return cod.unpack_binary("add_cipheru64_cipheru64", blob)[-1]
+        with ThreadPoolExecutor(8) as pool:
+            refs = [f.result() for f in [pool.submit(unpack)
+                                         for _ in range(8)]]
+        want = hashlib.blake2b(fresh.to_bytes(), digest_size=32).digest()
+        assert {r.id for r in refs} == {refs[0].id}, bump
+        assert {r.digest for r in refs} == {want}, bump
+        for r in refs:
+            r.release()
 
 
 # ---------------------------------------------------------------------------
