@@ -48,7 +48,17 @@ the distributed NTT at D = 2 and 4, ``RequestStream`` on (dp, tp) =
 stages and ``ByteServer`` on dp = 4 with both codecs, every rank's result
 equal to the single-device one and its launches equal to those its
 batches imply.  The world's times are those of one card shared by four
-ranks, not a scaling figure.  Before all that it builds the CUDA
+ranks, not a scaling figure.  Then phase hardening, the port's native
+code under checkers: the ten kernels in a process of their own
+(``--sanitize-kernels``) at their smallest shapes, ragged row counts and
+largest n, every input and output between poisoned guard words and the
+output poisoned (two poisons), each word-equal to its plain version with
+no guard or input written (a process that compute-sanitizer can wrap,
+where the tool supports the card); the coverage fuzzer (ASan + UBSan) over
+the C++ byte path from the synthesized seeds and the JAX package's 132;
+the ASan drive on three presets and the TSan drive, every case equal to
+the torch app on the card; the install with ``c_fhe.pc`` and two C hosts
+linked through ``pkg-config``.  Before all that it builds the CUDA
 kernels from ``fhe_precompiles_tpu_torch/csrc/`` and holds each of the ten
 (five BEHZ tail segments, forward and inverse butterfly NTT, forward and
 inverse four-step NTT, one four-step product) against its plain PyTorch
@@ -61,7 +71,7 @@ Phases, one JSON line each: device, build, kernels, main_path, round_trip,
 timing, four_step_path, app (with the zstd codec that ran: ``zstandard``, or
 the machine's libzstd through ctypes where ``zstandard`` does not import),
 serve, native_engine (with the host CPU's model and cores), soak, c_abi,
-multi_device.
+multi_device, hardening.
 Any failure ends the run with a non-zero exit code and without the last
 line. Then, in this order: the card's name and power limit as ``nvidia-smi``
 gives them, one ``{"kernels": [...]}`` line (per kernel: launches counted
@@ -113,6 +123,9 @@ from fhe_precompiles_tpu_torch.app import _CT_CODEC, _PK_CODEC
 from fhe_precompiles_tpu_torch.bfv import BfvContext, Ciphertext
 from fhe_precompiles_tpu_torch.encoding import PLAIN_TYPES
 from fhe_precompiles_tpu_torch.native import codec as codec_mod
+from fhe_precompiles_tpu_torch.native import fuzz as fuzz_mod
+from fhe_precompiles_tpu_torch.native import install as install_mod
+from fhe_precompiles_tpu_torch.native import sanitize as sanitize_mod
 from fhe_precompiles_tpu_torch.ops import build, tail, tail_cases
 from fhe_precompiles_tpu_torch.ops import four_step as fsm
 from fhe_precompiles_tpu_torch.ops import ntt as nttm
@@ -2844,9 +2857,313 @@ def phase_multi_device(torch_app: FheApp, golden: FheApp, user_keys,
                 for codec, g in ranks[0]["serve"].items()}}}
 
 
+# ---------------------------------------------------------------------------
+# phase hardening: the port's native code under checkers
+# ---------------------------------------------------------------------------
+
+HARDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "fhe_precompiles_tpu_torch", "_build", "hardening")
+HARDEN_FUZZ_S = 15          # the fuzzer's budget in the phase
+HARDEN_KERNELS_LIMIT_S = 300
+GUARD_WORDS = 4096          # poisoned words before and after every buffer
+POISONS = (0x5A5A5A5A5A5A5A5A, -1)
+
+
+class Guarded:
+    """`numel` int64 words on the card between GUARD_WORDS words of
+    `poison` on each side, the words themselves poisoned too."""
+
+    def __init__(self, numel: int, poison: int, device):
+        self.numel, self.poison = numel, poison
+        self.buf = torch.full((2 * GUARD_WORDS + numel,), poison,
+                              dtype=torch.int64, device=device)
+
+    def body(self) -> torch.Tensor:
+        return self.buf[GUARD_WORDS:GUARD_WORDS + self.numel]
+
+    def guards_intact(self) -> bool:
+        rest = torch.cat([self.buf[:GUARD_WORDS],
+                          self.buf[GUARD_WORDS + self.numel:]])
+        return bool((rest == self.poison).all())
+
+
+def guarded_launch(kern, plain, bases, views, poison: int) -> list:
+    """Runs the wrapper `kern` once on copies of the tensors `bases` (each
+    seen through its view of `views`) that sit between poisoned guard
+    words, into an output between guards filled with `poison` (passed as
+    its ``out=``), and holds the result to `plain` on the clean inputs.
+    Returns what went wrong: a word that differs (the poison of an unwritten
+    word, or a read beyond an input reaching the result), a guard or an
+    input written."""
+    want = plain(*[v(b) for b, v in zip(bases, views)])
+    ins = []
+    for b in bases:
+        g = Guarded(b.numel(), poison, b.device)
+        g.body().copy_(b.reshape(-1))
+        ins.append(g)
+    out = Guarded(want.numel(), poison, want.device)
+    kern(*[v(g.body().view(b.shape)) for g, b, v in zip(ins, bases, views)],
+         out=out.body().view(want.shape))
+    torch.cuda.synchronize()
+    problems = []
+    got = out.body().view(want.shape)
+    if not torch.equal(got, want):
+        problems.append(f"{count_diff(got, want)} words differ from the "
+                        "plain version")
+    for what, gs in (("input", ins), ("output", [out])):
+        if not all(g.guards_intact() for g in gs):
+            problems.append(f"a guard of an {what} was written")
+    if not all(torch.equal(g.body(), b.reshape(-1))
+               for g, b in zip(ins, bases)):
+        problems.append("an input was written")
+    return problems
+
+
+def transform_rows(rng, lead, mods, n) -> torch.Tensor:
+    """``ntt_rows`` where the batch holds its four edge blocks, else
+    uniform residues."""
+    if int(np.prod(lead)) >= 4:
+        return ntt_rows(rng, lead, mods, n)
+    return dev(rand_rows(rng, lead, mods, n))
+
+
+def ragged_batch(rows_a_block: int, limbs: int) -> int:
+    """The least batch B > 1 whose B * limbs rows leave a partial block; 3
+    where a block takes one row (no count leaves a partial one)."""
+    if rows_a_block == 1:
+        return 3
+    return next(b for b in range(2, 64) if (b * limbs) % rows_a_block)
+
+
+def hardening_kernel_cases(rng) -> list:
+    """The ten kernels at their smallest shape, a ragged row count that
+    leaves a partial last block, and their largest n: (kernel, label,
+    wrapper, plain version, base tensors, views), the wrapper and the plain
+    version taking the views."""
+    def same(t):
+        return t
+
+    def bound(fn, *tables):
+        return lambda *xs, **kw: fn(*xs, *tables, **kw)
+
+    cases = []
+    contexts = {"testnet.one": BfvContext(TESTNET_ONE),
+                "bench.n1024": BfvContext(BENCH_N1024),
+                "bench.n8192": BfvContext(BENCH_N8192)}
+    consts = {name: tail.TailConstants(g, "cuda")
+              for name, g in contexts.items()}
+    g1, c1 = contexts["testnet.one"], consts["testnet.one"]
+    n, k = g1.n, g1.k
+    allm = g1.q_mods + g1.Bsk
+    for B in (1, 3):
+        a = tail_cases.place_r_cases(rand_rows(rng, (B * 2,), g1.q_mods, n),
+                                     g1).reshape(B, 2, k, n)
+        label = f"testnet.one, B = {B}"
+        cases += [
+            ("to_bsk_ext", label, bound(tail.to_bsk_ext, c1),
+             bound(tail.to_bsk_ext_plain, c1), [dev(a)], [same]),
+            ("dyadic", label, bound(tail.dyadic, c1),
+             bound(tail.dyadic_plain, c1),
+             [dev(rand_rows(rng, (B, 2), allm, n)),
+              dev(rand_rows(rng, (B, 2), allm, n))], [same, same]),
+            ("relin_dot", label, bound(tail.relin_dot, c1),
+             bound(tail.relin_dot_plain, c1),
+             [dev(rand_rows(rng, (B, k), g1.key_mods, n)),
+              dev(rand_rows(rng, (k, 2), g1.key_mods, n))], [same, same]),
+            ("mod_down", label + ", strided ct3[:, :2]",
+             bound(tail.mod_down, c1), bound(tail.mod_down_plain, c1),
+             [dev(rand_rows(rng, (B, 2), g1.key_mods, n)),
+              dev(rand_rows(rng, (B, 3), g1.q_mods, n))],
+             [same, lambda t: t[:, :2]])]
+    for name, B in (("testnet.one", 1), ("testnet.one", 3),
+                    ("bench.n1024", 3), ("bench.n8192", 1)):
+        g, c = contexts[name], consts[name]
+        tq = tail_cases.place_alpha_cases(
+            rand_rows(rng, (B * 3,), g.q_mods + g.Bsk, g.n), g)
+        cases.append(("floor_sk", f"{name}, B = {B} (k = {g.k}, |Bsk| = "
+                      f"{len(g.Bsk)})", bound(tail.floor_sk, c),
+                      bound(tail.floor_sk_plain, c),
+                      [dev(tq.reshape(B, 3, c.nb, g.n))], [same]))
+    butterfly = (("ntt", nttm.ntt, nttm.ntt_plain),
+                 ("intt", nttm.intt, nttm.intt_plain))
+    for name in ("testnet.one", "bench.n8192"):
+        g = contexts[name]
+        mods = g.q_mods + g.Bsk
+        L = len(mods)
+        tb = nttm.build_tables(mods, g.n, "cuda")
+        for B in ((1, 7) if name == "testnet.one" else (2,)):
+            x = transform_rows(rng, (B,), mods, g.n)
+            for kern_name, kern, plain in butterfly:
+                cases.append((kern_name, f"{name} q+bsk, B = {B}",
+                              bound(kern, tb), bound(plain, tb), [x], [same]))
+        if name == "testnet.one":
+            qtb = nttm.build_tables(g.q_mods, g.n, "cuda")
+            ct = ntt_rows(rng, (3, 2), g.q_mods, g.n)
+            for kern_name, kern, plain in butterfly:
+                cases.append((kern_name, "testnet.one q, strided ct[:, 1]",
+                              bound(kern, qtb), bound(plain, qtb), [ct],
+                              [lambda t: t[:, 1]]))
+        ftb = fsm.build_mxu_tables(mods, g.n, "cuda")
+        rpb = fsm.kernel_fit(ftb.R, ftb.C)[0]
+        for B in (1, ragged_batch(rpb, L)):
+            x = transform_rows(rng, (B,), mods, g.n)
+            for kern_name, kern, plain in (
+                    ("four_step_ntt", fsm.ntt, fsm.ntt_plain),
+                    ("four_step_intt", fsm.intt, fsm.intt_plain)):
+                cases.append((kern_name, f"{name}, R = {ftb.R}, B = {B} "
+                              f"({B * L} rows, {rpb} a block)",
+                              bound(kern, ftb), bound(plain, ftb), [x],
+                              [same]))
+        # kernel 9 on R x R matrices with the R-side weights: 64 x 64 on
+        # testnet.one, 128 x 128 on bench.n8192 (a random grid)
+        K = ftb.R
+        rpb = fsm.phase_fit(K, K)[0]
+        grid = dev(rand_rows(rng, (), mods, K * K)).view(L, K, K)
+        for B in (1, ragged_batch(rpb, L)):
+            m = dev(rand_rows(rng, (B,), mods, K * K)).view(B, L, K, K)
+            for mode in fsm.PHASE_MODES:
+                args = (ftb.A_wg, None if mode == "none" else grid, mode, ftb)
+                cases.append((
+                    "four_step_phase", f"{name}, {mode}, K = J = {K}, B = "
+                    f"{B} ({B * L} rows, {rpb} a block)",
+                    bound(fsm.phase, *args), bound(fsm.phase_plain, *args),
+                    [m], [same]))
+    return cases
+
+
+def sanitize_kernels() -> int:
+    """The child of ``--sanitize-kernels``: every case of
+    ``hardening_kernel_cases`` through ``guarded_launch`` with each of
+    POISONS (tolerance 0), in this process alone so that a checker may run
+    it.  Prints one JSON line; exits 1 if any case went wrong."""
+    t0 = time.perf_counter()
+    build.load_library()
+    cases = hardening_kernel_cases(np.random.default_rng(SEED + 40))
+    reset_launch_counts()
+    out = {name: {"cases": [], "launches": 0, "problems": 0}
+           for name in KERNEL_NAMES}
+    for name, label, kern, plain, bases, views in cases:
+        problems = []
+        for poison in POISONS:
+            problems += [f"poison {poison & (2 ** 64 - 1):#x}: {p}"
+                         for p in guarded_launch(kern, plain, bases, views,
+                                                 poison)]
+        out[name]["cases"].append({"case": label, "problems": problems})
+        out[name]["problems"] += len(problems)
+    for name, n in launch_counts().items():
+        out[name]["launches"] = n
+    emit({"kernels": out, "guard_words": GUARD_WORDS,
+          "poisons": [p & (2 ** 64 - 1) for p in POISONS],
+          "seconds": time.perf_counter() - t0})
+    return 1 if any(r["problems"] or not r["launches"]
+                    for r in out.values()) else 0
+
+
+def kernel_checks() -> dict:
+    """Runs ``--sanitize-kernels`` as a process of its own (the process a
+    checker such as compute-sanitizer wraps, where it supports the card).
+    Returns its record with the process's seconds; raises if it fails."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--sanitize-kernels"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=HARDEN_KERNELS_LIMIT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"kernel checks: exit {proc.returncode}\n"
+                             f"{proc.stdout[-6000:]}\n{proc.stderr[-6000:]}")
+    rec = json.loads(lines[-1])
+    rec["seconds_process"] = seconds
+    return rec
+
+
+def build_sanitizers_timed() -> float:
+    """Builds the fuzzer and the two sanitizer drivers (their objects side
+    by side); returns the seconds it took."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda a: build.build_sanitized(*a), (
+            ("asan", "fuzz_native.cpp", ()),
+            ("asan", "sanitize_driver.c", ("sanitize_cases.h",)),
+            ("tsan", "tsan_driver.c", ("sanitize_cases.h",)))))
+    return time.perf_counter() - t0
+
+
+def phase_hardening(torch_app: FheApp, card: str, sanitizer_build) -> dict:
+    """The port's native code under checkers.
+
+    Kernels: ``--sanitize-kernels`` in a process of its own, each of the
+    ten kernels at its smallest shape, a ragged row count and its largest
+    n, every buffer between poisoned guards, the output poisoned, two
+    poisons: equal to the plain version word for word, no guard or input
+    written.  Then the coverage fuzzer (ASan + UBSan)
+    for HARDEN_FUZZ_S seconds from the synthesized corpus and the JAX
+    package's 132 seeds; the ASan drive on testnet.one, bench.n8192 and
+    bench.n1024 and the TSan drive on testnet.one, the expected bytes from
+    the torch app on the card; the install into a temporary prefix and
+    ``host_test.c`` linked through ``pkg-config``, shared and static,
+    passing with ``--keys`` from ``keydir``."""
+    t_phase = time.perf_counter()
+    build_s = sanitizer_build.result()
+    kernels = kernel_checks()
+
+    shutil.rmtree(HARDEN_DIR, ignore_errors=True)
+    os.makedirs(HARDEN_DIR)
+    try:
+        fz = fuzz_mod.run(HARDEN_FUZZ_S, seed=SEED,
+                          corpus_dir=os.path.join(HARDEN_DIR, "fuzz"))
+        if fz["replayed"].get(str(fuzz_mod.REFERENCE_SEEDS)) != 132:
+            raise AssertionError(f"fuzzer: replayed {fz['replayed']}, not "
+                                 "the reference's 132 seeds")
+        apps = {"testnet.one": torch_app}
+        for name in ("bench.n8192", "bench.n1024"):
+            apps[name] = sanitize_mod.preset_app(name, engine="torch")
+        drives = sanitize_mod.run_all(apps, os.path.join(HARDEN_DIR,
+                                                         "drives"))
+        prefix = os.path.join(HARDEN_DIR, "prefix")
+        t0 = time.perf_counter()
+        files = install_mod.install(prefix)
+        hosts = {}
+        for link in ("shared", "static"):
+            exe = install_mod.build_host(
+                prefix, os.path.join(HARDEN_DIR, f"host_test_{link}"),
+                link == "static")
+            lines, host_s = run_host([str(exe),
+                                      *install_mod.host_keys(prefix)],
+                                     f"installed host_test ({link})")
+            hosts[link] = {"lines": lines, "seconds": host_s}
+        install_s = time.perf_counter() - t0
+        libs = install_mod.pkg_config(prefix, "--libs")
+    finally:
+        shutil.rmtree(HARDEN_DIR, ignore_errors=True)
+    return {
+        "phase": "hardening", "ok": True, "card": card,
+        "seconds": time.perf_counter() - t_phase,
+        "sanitizer_build_s": build_s,
+        "kernels": {
+            "seconds": kernels["seconds_process"],
+            "kernels_checked": sum(1 for r in kernels["kernels"].values()
+                                   if r["launches"]),
+            "cases": sum(len(r["cases"]) for r in kernels["kernels"].values()),
+            "errors": sum(r["problems"] for r in kernels["kernels"].values()),
+            "launches": {k: r["launches"]
+                         for k, r in kernels["kernels"].items()},
+            "cases_by_kernel": {k: [c["case"] for c in r["cases"]]
+                                for k, r in kernels["kernels"].items()}},
+        "fuzz": {**fz, "iterations_per_s": fz["iterations"]
+                 / fz["seconds_budget"]},
+        "asan_drive": drives["asan"],
+        "tsan_drive": drives["tsan"],
+        "install": {"files": sorted(files), "libs": libs, "hosts": hosts,
+                    "seconds": install_s}}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--multi-device-rank"]:
         return multi_device_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--sanitize-kernels"]:
+        return sanitize_kernels()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs one CUDA card", file=sys.stderr)
@@ -2867,8 +3184,9 @@ def main() -> int:
           "python": sys.version.split()[0]})
 
     # the codec library's g++ build runs beside the kernels' nvcc build
-    beside_nvcc = ThreadPoolExecutor(max_workers=1)
+    beside_nvcc = ThreadPoolExecutor(max_workers=2)
     codec_build = beside_nvcc.submit(build_codec_timed)
+    sanitizer_build = beside_nvcc.submit(build_sanitizers_timed)
     beside_nvcc.shutdown(wait=False)
     t0 = time.perf_counter()
     build.load_library(verbose="--ptxas" in sys.argv)
@@ -2877,6 +3195,10 @@ def main() -> int:
           "flags": " ".join(build.NVCC_FLAGS),
           "nvcc_seconds": build.build_seconds,
           "seconds": time.perf_counter() - t0})
+    # no timed phase shares the host with a compile: where nvcc had nothing
+    # to build, the g++ builds would run on into phases kernels and timing
+    codec_build.result()
+    sanitizer_build.result()
 
     eng = TorchEngine(TESTNET_ONE)            # default device: the card
     eng4 = TorchEngine(TESTNET_ONE, ntt_backend="four_step")
@@ -2912,6 +3234,7 @@ def main() -> int:
     emit(phase_c_abi(torch_app, native_app, user_keys, calldata, rows, card))
     emit(phase_multi_device(torch_app, golden, user_keys, serve_stream, rows,
                             card))
+    emit(phase_hardening(torch_app, card, sanitizer_build))
 
     print(card, flush=True)
     emit({"kernels": [rows[name] for name in KERNEL_NAMES]})

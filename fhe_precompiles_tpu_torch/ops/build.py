@@ -31,6 +31,14 @@ every library linked from them:
 * ``build_host_engine``: ``_build/libhost_engine.so``, the engine's
   ``he_*`` calls (``native/engine.py``).
 
+``build_sanitized_objects`` compiles the same two sources once for each
+instrumentation of ``SANITIZERS`` into ``_build/sanitize/``: "asan"
+(AddressSanitizer and UndefinedBehaviorSanitizer, with gcc's
+``-fsanitize-coverage=trace-pc`` edges, shared by the coverage fuzzer and
+the ASan drive) and "tsan" (ThreadSanitizer); ``build_sanitized`` links
+one of the port's C or C++ drivers against such a set
+(``native/fuzz.py``, ``native/sanitize.py``).
+
 Each output has a stamp (a hash of its inputs and its command) and a lock
 beside it.  The libraries link libzstd by its runtime name,
 ``-l:libzstd.so.1``, and ``precompiles.cpp`` declares the calls it makes in
@@ -75,6 +83,19 @@ NATIVE_OBJECTS = {
     "host_engine.o": ("host_engine.cpp",),
 }
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17"]
+SANITIZE_DIR = BUILD_DIR / "sanitize"
+# instrumentation -> its compile flags, and what a link against it adds.
+# The asan objects carry trace-pc edges: a binary that links them defines
+# __sanitizer_cov_trace_pc (the fuzzer's bitmap, or an empty one).
+_ASAN = ["-fsanitize=address,undefined", "-fno-sanitize-recover=all"]
+SANITIZERS = {
+    "asan": (["-O1", "-g", "-fPIC", "-std=c++17", *_ASAN,
+              "-fsanitize-coverage=trace-pc"], _ASAN),
+    "tsan": (["-O1", "-g", "-fPIC", "-std=c++17", "-fsanitize=thread"],
+             ["-fsanitize=thread"]),
+}
+# what every binary linked from the C++ objects needs beside them
+NATIVE_LINK = ["-l:libzstd.so.1", "-ldl", "-lpthread"]
 
 # --threads 0: the sources are compiled side by side, one job for each
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -297,3 +318,59 @@ def build_host_engine() -> Path:
     obj = _object("host_engine.o")
     return stamped(HOST_ENGINE_LIB, [obj],
                    lambda out: ["g++", "-shared", str(obj), "-o", str(out)])
+
+
+def sanitized_object_command(kind: str, obj: str, out: Path) -> list:
+    """The g++ command that compiles object `obj` (a key of
+    ``NATIVE_OBJECTS``) with the instrumentation `kind` (a key of
+    ``SANITIZERS``) into `out`."""
+    return ["g++", *SANITIZERS[kind][0], "-c",
+            str(NATIVE / NATIVE_OBJECTS[obj][0]), "-o", str(out)]
+
+
+def sanitized_objects(kind: str) -> list:
+    """The paths of the `kind` objects (built or not)."""
+    return [SANITIZE_DIR / obj.replace(".o", f".{kind}.o")
+            for obj in NATIVE_OBJECTS]
+
+
+def build_sanitized_objects(kind: str) -> list:
+    """Compiles ``precompiles.cpp`` and ``host_engine.cpp`` with the
+    instrumentation `kind` into ``_build/sanitize/`` side by side, each
+    unless its stamp is up to date; returns their paths."""
+    if kind not in SANITIZERS:
+        raise ValueError(f"unknown instrumentation {kind!r} (expected one "
+                         f"of {sorted(SANITIZERS)})")
+
+    def one(pair):
+        obj, out = pair
+        return stamped(out, [NATIVE / f for f in NATIVE_OBJECTS[obj]],
+                       functools.partial(sanitized_object_command, kind, obj))
+
+    pairs = list(zip(NATIVE_OBJECTS, sanitized_objects(kind)))
+    with ThreadPoolExecutor(len(pairs)) as pool:
+        return list(pool.map(one, pairs))
+
+
+def sanitized_command(kind: str, source: str, out: Path) -> list:
+    """The g++ command that compiles the driver `source` (a file of
+    ``native/``; a ``.c`` file is compiled as C) with the instrumentation
+    `kind`, without coverage edges, and links it against the `kind`
+    objects into the executable `out`."""
+    lang = ["-x", "c"] if source.endswith(".c") else []
+    std = [] if lang else ["-std=c++17"]
+    return ["g++", "-O1", "-g", *std, *SANITIZERS[kind][1], "-I", str(NATIVE),
+            *lang, str(NATIVE / source), "-x", "none",
+            *map(str, sanitized_objects(kind)), "-o", str(out), *NATIVE_LINK]
+
+
+def build_sanitized(kind: str, source: str, headers=()) -> Path:
+    """Builds the driver `source` of ``native/`` (with the `headers` of
+    ``native/`` it includes) against the `kind` objects into
+    ``_build/sanitize/<stem>`` (the objects first), unless it is up to
+    date; returns its path.  Raises if a step fails."""
+    objs = build_sanitized_objects(kind)
+    out = SANITIZE_DIR / Path(source).stem
+    return stamped(out, objs + [NATIVE / f for f in (source, "c_fhe.h",
+                                                     *headers)],
+                   functools.partial(sanitized_command, kind, source))

@@ -28,7 +28,8 @@ gives the bytes of ``ops/ntt.py`` (and of the golden model).
 ``ntt`` / ``intt`` / ``phase`` take the plain version only for a tensor that
 lies on the CPU.  For a CUDA tensor they launch the kernel of
 ``csrc/four_step.cu`` on PyTorch's current stream (no synchronise; the output
-comes from ``torch.empty``) or raise; nothing falls back.  Each adds one to
+comes from ``torch.empty``, or is the caller's ``out=``) or raise; nothing
+falls back.  Each adds one to
 ``launch_counts[name]`` where it launches.  On the card the digit-pair
 products run on the integer tensor cores (u8 x u8 -> s32).
 
@@ -53,7 +54,7 @@ from ..bfv.modmath import mulmod as np_mulmod
 from ..bfv.modmath import submod as np_submod
 from . import build
 from .modmath import barrett_mu, mulmod, shoup40_precompute, shoup_precompute
-from .ntt import _group_stride, _check_input
+from .ntt import _check_input, _group_stride, _into, _output
 
 NDIG = 5                       # base-256 digits of a residue below 2^40
 KERNEL_SIDES = (16, 32, 64, 128)   # R and C the kernels take
@@ -517,8 +518,8 @@ def _check_library_fit(lib) -> None:
     _fit_checked = True
 
 
-def _launch_transform(name: str, x: torch.Tensor,
-                      tb: MxuNttTables) -> torch.Tensor:
+def _launch_transform(name: str, x: torch.Tensor, tb: MxuNttTables,
+                      out: Optional[torch.Tensor]) -> torch.Tensor:
     L, n = tb.p.shape[0], tb.n
     _check_input(name, x, tb.p.device, (L, n))
     check_transform_fits(name, tb.R, tb.C)
@@ -526,7 +527,7 @@ def _launch_transform(name: str, x: torch.Tensor,
     stride = _group_stride(x, name, L, n)
     lib = build.load_library()
     _check_library_fit(lib)
-    out = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    out = _output(name, out, x.shape, x.device)
     rows = math.prod(x.shape[:-1])
     # the r- and c-product's weights, and the grid in the first product's
     # output order
@@ -546,30 +547,33 @@ def _launch_transform(name: str, x: torch.Tensor,
     return out
 
 
-def ntt(x: torch.Tensor, tb: MxuNttTables) -> torch.Tensor:
+def ntt(x: torch.Tensor, tb: MxuNttTables, *,
+        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Forward four-step NTT of (..., L, n), both phases in one kernel.
     Kernel for PallasNtt._fused_call (forward)."""
     if x.device.type == "cpu":
-        return ntt_plain(x, tb)
-    return _launch_transform("four_step_ntt", x, tb)
+        return _into("four_step_ntt", out, ntt_plain(x, tb))
+    return _launch_transform("four_step_ntt", x, tb, out)
 
 
-def intt(x: torch.Tensor, tb: MxuNttTables) -> torch.Tensor:
+def intt(x: torch.Tensor, tb: MxuNttTables, *,
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inverse four-step NTT of (..., L, n), times n^-1 * factor, both
     phases in one kernel.  Kernel for PallasNtt._fused_call (inverse)."""
     if x.device.type == "cpu":
-        return intt_plain(x, tb)
-    return _launch_transform("four_step_intt", x, tb)
+        return _into("four_step_intt", out, intt_plain(x, tb))
+    return _launch_transform("four_step_intt", x, tb, out)
 
 
 def phase(x: torch.Tensor, weights: torch.Tensor, grid, mode: str,
-          tb: MxuNttTables) -> torch.Tensor:
+          tb: MxuNttTables, *,
+          out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One digit-matrix product over (..., L, K, J) with the grid before,
     after or not at all (see ``phase_plain``).  Kernel for
     PallasNtt._phase."""
-    if x.device.type == "cpu":
-        return phase_plain(x, weights, grid, mode, tb)
     name = "four_step_phase"
+    if x.device.type == "cpu":
+        return _into(name, out, phase_plain(x, weights, grid, mode, tb))
     _check_mode(mode, grid)
     L = tb.p.shape[0]
     if x.dim() < 3:
@@ -596,7 +600,7 @@ def phase(x: torch.Tensor, weights: torch.Tensor, grid, mode: str,
     stride = _group_stride(flat, name, L, K * J)
     lib = build.load_library()
     _check_library_fit(lib)
-    out = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    out = _output(name, out, x.shape, x.device)
     rows = math.prod(x.shape[:-2])
     with torch.cuda.device(x.device):
         rc = lib.fhe_four_step_phase(

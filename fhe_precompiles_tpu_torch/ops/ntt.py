@@ -17,8 +17,8 @@ Forward input and every output are canonical residues.
 ``ntt`` / ``intt`` take the plain version only for a tensor that lies on the
 CPU.  For a CUDA tensor they launch the kernel of ``csrc/ntt.cu`` on
 PyTorch's current stream (no synchronise; the output comes from
-``torch.empty``) or raise; nothing falls back.  Each adds one to
-``launch_counts[name]`` where it launches.
+``torch.empty``, or is the caller's ``out=``) or raise; nothing falls back.
+Each adds one to ``launch_counts[name]`` where it launches.
 
 The plain versions are the plainest exact schedule: radix 2, one pass per
 stage, every butterfly fully reduced.  The kernels keep values lazy between
@@ -204,7 +204,32 @@ def _check_input(name: str, x: torch.Tensor, tables_device: torch.device,
                          f"{x.device}")
 
 
-def _launch(name: str, x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+def _output(name: str, out: Optional[torch.Tensor], shape,
+            device: torch.device) -> torch.Tensor:
+    """The buffer a kernel writes whole: a new one from ``torch.empty``, or
+    the caller's `out`, which must be a contiguous, 16-byte aligned int64
+    tensor of `shape` on `device` that overlaps no input."""
+    if out is None:
+        return torch.empty(shape, dtype=torch.int64, device=device)
+    if (out.dtype != torch.int64 or out.device != device
+            or tuple(out.shape) != tuple(shape) or not out.is_contiguous()
+            or out.data_ptr() % 16):
+        raise ValueError(f"{name}: out must be a contiguous, 16-byte aligned "
+                         f"int64 tensor of shape {tuple(shape)} on {device}")
+    return out
+
+
+def _into(name: str, out: Optional[torch.Tensor],
+          result: torch.Tensor) -> torch.Tensor:
+    """A plain version's `result`, or its words copied into `out` (checked
+    as ``_output`` checks it)."""
+    if out is None:
+        return result
+    return _output(name, out, result.shape, result.device).copy_(result)
+
+
+def _launch(name: str, x: torch.Tensor, tb: NttTables,
+            out: Optional[torch.Tensor]) -> torch.Tensor:
     L, n = tb.p.shape[0], tb.n
     _check_input(name, x, tb.p.device, (L, n))
     stride = _group_stride(x, name, L, n)
@@ -216,7 +241,7 @@ def _launch(name: str, x: torch.Tensor, tb: NttTables) -> torch.Tensor:
         raise ValueError(f"{name}: the kernel takes 8 <= n <= {MAX_N} (a row "
                          "and the limb's tables must fit one block's shared "
                          f"memory), got n = {n}")
-    out = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    out = _output(name, out, x.shape, x.device)
     rows = math.prod(x.shape[:-1])
     with torch.cuda.device(x.device):      # the launch goes to x's card
         stream = torch.cuda.current_stream().cuda_stream
@@ -238,21 +263,23 @@ def _launch(name: str, x: torch.Tensor, tb: NttTables) -> torch.Tensor:
     return out
 
 
-def ntt(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+def ntt(x: torch.Tensor, tb: NttTables, *,
+        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Forward NTT of (..., L, n): natural order in, bit-reversed out.
     Kernel for PairPallasNtt.ntt.  Bound by bytes: reads and writes
     rows * n words once."""
     if x.device.type == "cpu":
-        return ntt_plain(x, tb)
-    return _launch("ntt", x, tb)
+        return _into("ntt", out, ntt_plain(x, tb))
+    return _launch("ntt", x, tb, out)
 
 
-def intt(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+def intt(x: torch.Tensor, tb: NttTables, *,
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inverse NTT of (..., L, n): bit-reversed in, natural order out, times
     tb.n_inv.  Kernel for PairPallasNtt.intt.  Bound by bytes, as ``ntt``."""
     if x.device.type == "cpu":
-        return intt_plain(x, tb)
-    return _launch("intt", x, tb)
+        return _into("intt", out, intt_plain(x, tb))
+    return _launch("intt", x, tb, out)
 
 
 class ButterflyNtt:

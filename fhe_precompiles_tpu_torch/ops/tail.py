@@ -26,8 +26,8 @@ positions a thread; see the notes there.
 
 A wrapper takes the plain version only for a tensor that lies on the CPU.
 For a CUDA tensor it launches its kernel on PyTorch's current stream (no
-synchronise; outputs come from ``torch.empty``) or raises; nothing falls
-back.  Each wrapper adds one to ``launch_counts[name]`` where it launches.
+synchronise; outputs come from ``torch.empty``, or are the caller's
+``out=``) or raises; nothing falls back.  Each wrapper adds one to ``launch_counts[name]`` where it launches.
 
 The plain versions are built from ``ops/modmath.py`` on int64 tensors and
 follow the contraction helpers of ``fhe_precompiles_tpu/ops/behz_pair.py``
@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -46,6 +47,7 @@ from ..bfv.golden import BfvContext
 from . import build
 from .modmath import (addmod, barrett_mu, mulmod, negmod, shoup40_precompute,
                       shoup_precompute, submod)
+from .ntt import _into, _output
 
 # fixed limb capacities of the kernels' parameter struct (csrc/tail.cu)
 MAX_K, MAX_BSK, MAX_KEY = 3, 5, 4
@@ -400,86 +402,87 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def to_bsk_ext(a: torch.Tensor, c: TailConstants) -> torch.Tensor:
+def to_bsk_ext(a: torch.Tensor, c: TailConstants, *,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel for PairTailPallas.to_bsk_ext.  Bound by bytes: reads
     rows*k*n words, writes rows*nb*n."""
     if a.device.type == "cpu":
-        return to_bsk_ext_plain(a, c)
+        return _into("to_bsk_ext", out, to_bsk_ext_plain(a, c))
     lead = tuple(a.shape[:-2])
     _check(a, "to_bsk_ext", lead + (c.k, c.n))
     prm, lib = c.struct, _library(c)
-    out = torch.empty(lead + (c.nb, c.n), dtype=torch.int64, device=a.device)
+    out = _output("to_bsk_ext", out, lead + (c.nb, c.n), a.device)
     _launch("to_bsk_ext", lib.fhe_tail_to_bsk_ext, a.data_ptr(),
             out.data_ptr(), math.prod(lead), c.n, ctypes.addressof(prm),
             _stream(a))
     return out
 
 
-def dyadic(fa: torch.Tensor, fb: torch.Tensor,
-           c: TailConstants) -> torch.Tensor:
+def dyadic(fa: torch.Tensor, fb: torch.Tensor, c: TailConstants, *,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel for PairTailPallas.dyadic.  Bound by bytes: reads 2 * B*2*nb*n
     words, writes B*3*nb*n."""
     if fa.device.type == "cpu" and fb.device.type == "cpu":
-        return dyadic_plain(fa, fb, c)
+        return _into("dyadic", out, dyadic_plain(fa, fb, c))
     if fa.dim() != 4:
         raise ValueError("dyadic: expected (B, 2, nb, n) operands")
     B = fa.shape[0]
     _check(fa, "dyadic", (B, 2, c.nb, c.n))
     _check(fb, "dyadic", (B, 2, c.nb, c.n))
     prm, lib = c.struct, _library(c)
-    out = torch.empty((B, 3, c.nb, c.n), dtype=torch.int64, device=fa.device)
+    out = _output("dyadic", out, (B, 3, c.nb, c.n), fa.device)
     _launch("dyadic", lib.fhe_tail_dyadic, fa.data_ptr(), fb.data_ptr(),
             out.data_ptr(), B, c.n, ctypes.addressof(prm), _stream(fa))
     return out
 
 
-def floor_sk(tq: torch.Tensor, c: TailConstants) -> torch.Tensor:
+def floor_sk(tq: torch.Tensor, c: TailConstants, *,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel for PairTailPallas.floor_sk.  Reads rows*nb*n words, writes
     rows*k*n; two positions a thread in 16-byte words, so n must be even and
-    the input 16-byte aligned (the output from ``torch.empty`` is)."""
+    the input 16-byte aligned (as the output must be)."""
     if tq.device.type == "cpu":
-        return floor_sk_plain(tq, c)
+        return _into("floor_sk", out, floor_sk_plain(tq, c))
     lead = tuple(tq.shape[:-2])
     _check(tq, "floor_sk", lead + (c.nb, c.n))
     if c.n % 2 or tq.data_ptr() % 16:
         raise ValueError("floor_sk: n must be even and the input 16-byte "
                          "aligned")
     prm, lib = c.struct, _library(c)
-    out = torch.empty(lead + (c.k, c.n), dtype=torch.int64, device=tq.device)
+    out = _output("floor_sk", out, lead + (c.k, c.n), tq.device)
     _launch("floor_sk", lib.fhe_tail_floor_sk, tq.data_ptr(), out.data_ptr(),
             math.prod(lead), c.n, ctypes.addressof(prm), _stream(tq))
     return out
 
 
-def relin_dot(d_ntt: torch.Tensor, rk: torch.Tensor,
-              c: TailConstants) -> torch.Tensor:
+def relin_dot(d_ntt: torch.Tensor, rk: torch.Tensor, c: TailConstants, *,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel for PairTailPallas.relin_dot.  Bound by bytes: reads
     B*k*k_key*n digit words and the key once, writes B*2*k_key*n."""
     if d_ntt.device.type == "cpu" and rk.device.type == "cpu":
-        return relin_dot_plain(d_ntt, rk, c)
+        return _into("relin_dot", out, relin_dot_plain(d_ntt, rk, c))
     if d_ntt.dim() != 4:
         raise ValueError("relin_dot: expected (B, k, k_key, n) digits")
     B = d_ntt.shape[0]
     _check(d_ntt, "relin_dot", (B, c.k, c.k_key, c.n))
     _check(rk, "relin_dot", (c.k, 2, c.k_key, c.n))
     prm, lib = c.struct, _library(c)
-    out = torch.empty((B, 2, c.k_key, c.n), dtype=torch.int64,
-                      device=d_ntt.device)
+    out = _output("relin_dot", out, (B, 2, c.k_key, c.n), d_ntt.device)
     _launch("relin_dot", lib.fhe_tail_relin_dot, d_ntt.data_ptr(),
             rk.data_ptr(), out.data_ptr(), B, c.n, ctypes.addressof(prm),
             _stream(d_ntt))
     return out
 
 
-def mod_down(acc: torch.Tensor, ct01: torch.Tensor,
-             c: TailConstants) -> torch.Tensor:
+def mod_down(acc: torch.Tensor, ct01: torch.Tensor, c: TailConstants, *,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel for PairTailPallas.mod_down.  Bound by bytes: reads
     B*2*k_key*n + B*2*k*n words, writes B*2*k*n.  ct01 may be the view
     ``ct3[:, :2]`` of a size-3 batch: only its batch stride is free."""
     if not c.has_keyswitch:
         raise ValueError("mod_down: parameter set has no special prime")
     if acc.device.type == "cpu" and ct01.device.type == "cpu":
-        return mod_down_plain(acc, ct01, c)
+        return _into("mod_down", out, mod_down_plain(acc, ct01, c))
     if acc.dim() != 4:
         raise ValueError("mod_down: expected (B, 2, k_key, n)")
     B, k, n = acc.shape[0], c.k, c.n
@@ -489,7 +492,7 @@ def mod_down(acc: torch.Tensor, ct01: torch.Tensor,
         raise ValueError("mod_down: ct01 must be contiguous within a batch "
                          "row")
     prm, lib = c.struct, _library(c)
-    out = torch.empty((B, 2, k, n), dtype=torch.int64, device=acc.device)
+    out = _output("mod_down", out, (B, 2, k, n), acc.device)
     _launch("mod_down", lib.fhe_tail_mod_down, acc.data_ptr(),
             ct01.data_ptr(), out.data_ptr(), B, n, ct01.stride(0),
             ctypes.addressof(prm), _stream(acc))

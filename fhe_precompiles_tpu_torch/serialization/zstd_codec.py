@@ -19,6 +19,7 @@ process's codec emits the consensus-canonical ones.
 from __future__ import annotations
 
 import ctypes
+import os
 import struct
 import threading
 
@@ -226,3 +227,23 @@ def codec_name() -> str:
     if zstandard is not None:
         return f"zstandard {zstandard.__version__}, zstd {version}"
     return f"{LIBRARY} (ctypes), zstd {version}"
+
+
+class _DlInfo(ctypes.Structure):
+    _fields_ = [("dli_fname", ctypes.c_char_p), ("dli_fbase", ctypes.c_void_p),
+                ("dli_sname", ctypes.c_char_p), ("dli_saddr", ctypes.c_void_p)]
+
+
+def library_path() -> str:
+    """The resolved path of the ``libzstd.so.1`` the ctypes codec loads
+    (the build the port's C++ libraries link by that name), from the
+    dynamic loader's ``dladdr`` of one of its functions."""
+    fn = load_library().ZSTD_versionNumber
+    dladdr = ctypes.CDLL(None).dladdr
+    dladdr.argtypes = [ctypes.c_void_p, ctypes.POINTER(_DlInfo)]
+    dladdr.restype = ctypes.c_int
+    info = _DlInfo()
+    if not dladdr(ctypes.cast(fn, ctypes.c_void_p), ctypes.byref(info)) \
+            or not info.dli_fname:
+        raise RuntimeError(f"dladdr found no file for {LIBRARY}")
+    return os.path.realpath(info.dli_fname.decode())

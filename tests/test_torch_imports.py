@@ -35,7 +35,8 @@ def test_every_submodule_is_listed():
                  "serialization.bincode", "serialization.seal",
                  "serialization.keyio", "serialization.zstd_probes",
                  "serialization.zstd_codec", "native", "native.codec",
-                 "native.engine", "parallel", "parallel.mesh",
+                 "native.engine", "native.fuzz", "native.sanitize",
+                 "native.install", "parallel", "parallel.mesh",
                  "parallel.multihost", "parallel.dist_ntt",
                  "parallel.pipeline", "parallel.stream", "serve",
                  "seal_compat",
