@@ -37,7 +37,7 @@ codes, no kernel launched, and host ms a call against the torch app's; and
 phase soak, one window of 256 requests of the reference soak's mix through
 ``ByteServer(codec="native")`` run 3 + 8 times: every run byte-equal to
 the first, the same launches every run, host RSS growth under 60 MB,
-``torch.cuda.memory_allocated()`` flat across the measured runs.  Last,
+``torch.cuda.memory_allocated()`` flat across the measured runs.  Then
 phase multi_device, the port's mesh on ``torch.distributed``: an NCCL
 world of one in this process (``RequestStream`` over ``global_mesh()`` and
 the distributed NTT at D = 1, equal to the stream without a mesh and to
@@ -58,7 +58,11 @@ where the tool supports the card); the coverage fuzzer (ASan + UBSan) over
 the C++ byte path from the synthesized seeds and the JAX package's 132;
 the ASan drive on three presets and the TSan drive, every case equal to
 the torch app on the card; the install with ``c_fhe.pc`` and two C hosts
-linked through ``pkg-config``.  Before all that it builds the CUDA
+linked through ``pkg-config``.  Last, phase examples: the port's three
+demos (``examples/torch_demo.py``, ``torch_consensus_demo.py``,
+``torch_byte_server_demo.py``) imported and their ``main`` run on the card,
+each with the launches its calls imply, and ``torch_demo.py`` once from the
+command line.  Before all that it builds the CUDA
 kernels from ``fhe_precompiles_tpu_torch/csrc/`` and holds each of the ten
 (five BEHZ tail segments, forward and inverse butterfly NTT, forward and
 inverse four-step NTT, one four-step product) against its plain PyTorch
@@ -71,7 +75,7 @@ Phases, one JSON line each: device, build, kernels, main_path, round_trip,
 timing, four_step_path, app (with the zstd codec that ran: ``zstandard``, or
 the machine's libzstd through ctypes where ``zstandard`` does not import),
 serve, native_engine (with the host CPU's model and cores), soak, c_abi,
-multi_device, hardening.
+multi_device, hardening, examples.
 Any failure ends the run with a non-zero exit code and without the last
 line. Then, in this order: the card's name and power limit as ``nvidia-smi``
 gives them, one ``{"kernels": [...]}`` line (per kernel: launches counted
@@ -95,11 +99,14 @@ It imports ``fhe_precompiles_tpu_torch`` only, never JAX.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import gc
 import hashlib
 import importlib.metadata
+import importlib.util
+import io
 import json
 import os
 import shutil
@@ -3159,6 +3166,140 @@ def phase_hardening(torch_app: FheApp, card: str, sanitizer_build) -> dict:
                     "seconds": install_s}}
 
 
+# ---------------------------------------------------------------------------
+# phase examples: the port's three demos on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "examples")
+EXAMPLES = ("torch_demo", "torch_consensus_demo", "torch_byte_server_demo")
+EXAMPLES_REQUESTS = 100     # the consensus demo's stream
+EXAMPLES_CLI_ARGS: list = []    # the command-line run's arguments
+EXAMPLES_CLI_LIMIT_S = 300
+
+
+def load_example(name: str):
+    """The demo ``examples/<name>.py`` as a module; its ``main`` not run."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(EXAMPLES_DIR, name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(mod, argv: list):
+    """``mod.main(argv)``, the lines it prints kept out of this script's
+    standard output (it returns them)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return mod.main(argv)
+
+
+def call_counts(requests, results) -> dict:
+    """The launches of the precompile calls `requests`, made one at a time
+    on the torch app with `results`: those of each call's op class
+    (``APP_CALLS``) where it returned code 0.  The demos' only failing call
+    stops while its calldata is parsed and launches nothing."""
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    for (name, _), (code, _) in zip(requests, results):
+        for k, v in (APP_CALLS[app_op_class(name)] if code == 0
+                     else {}).items():
+            counts[k] += v
+    return counts
+
+
+def check_launches(label: str, counts: dict, want: dict) -> dict:
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts}, expected "
+                             f"{want}")
+    return {k: v for k, v in counts.items() if v}
+
+
+def phase_examples(rows: dict, card: str) -> dict:
+    """The port's demos, ``examples/torch_*.py``, imported by path and their
+    ``main`` called on the card, the launch counters set to 0 just before
+    each and read just after, held to what its calls imply: ``torch_demo``
+    (16 * 4 = 64, error code 1, and its lines, bytes and noise budget equal
+    to the same ``main`` on the golden model), ``torch_consensus_demo`` on
+    EXAMPLES_REQUESTS requests (the card validator against the CPU golden
+    validator, 0 divergences) and ``torch_byte_server_demo``
+    (``ByteServer(codec="native")``, every response equal to
+    ``FheApp.call``; its launches those of the server's windows and of the
+    calls one at a time).  Then ``python examples/torch_demo.py`` once as
+    a process of its own, on the card, printing the same lines."""
+    t_phase = time.perf_counter()
+    demos = {name: load_example(name) for name in EXAMPLES}
+    seconds, launches = {}, {}
+
+    got, seconds["torch_demo"], counts = counted(
+        lambda: run_example(demos["torch_demo"], []))
+    golden, seconds["torch_demo_golden"] = timed(
+        lambda: run_example(demos["torch_demo"], ["--engine", "golden"]))
+    if got["value"] != 64 or got["error_code"] != 1:
+        raise AssertionError(f"torch_demo: 16 * 4 = {got['value']}, error "
+                             f"code {got['error_code']}")
+    keys = ("lines", "results", "ciphertext_bytes", "mul_in_bytes",
+            "product_bytes", "noise_budget_bits")
+    differ = [k for k in keys if got[k] != golden[k]]
+    if differ:
+        raise AssertionError(f"torch_demo on the card differs from the "
+                             f"golden model in {differ}")
+    launches["torch_demo"] = check_launches(
+        "torch_demo", counts, call_counts(got["requests"], got["results"]))
+    demo_lines = got["lines"]
+
+    got, seconds["torch_consensus_demo"], counts = counted(
+        lambda: run_example(demos["torch_consensus_demo"],
+                            ["--requests", str(EXAMPLES_REQUESTS)]))
+    if got["divergences"] or len(got["results"]) != EXAMPLES_REQUESTS:
+        raise AssertionError(f"torch_consensus_demo: {got['divergences']} "
+                             f"divergences in {len(got['results'])}")
+    launches["torch_consensus_demo"] = check_launches(
+        "torch_consensus_demo", counts,
+        call_counts(got["requests"], got["results"]))
+    consensus = {"requests": len(got["requests"]),
+                 "mul_requests": sum(name.startswith("mul_")
+                                     for name, _ in got["requests"]),
+                 "divergences": got["divergences"], "digest": got["digest"]}
+
+    got, seconds["torch_byte_server_demo"], counts = counted(
+        lambda: run_example(demos["torch_byte_server_demo"], []))
+    reqs, want = got["requests"], got["want"]
+    if got["results"] != want or any(code for code, _ in want):
+        raise AssertionError("torch_byte_server_demo: a response differs "
+                             "from FheApp.call or failed")
+    each = [APP_CALLS[app_op_class(name)] for name, _ in reqs]
+    served, _pooled = native_serve_counts(got["server"], reqs, want, each)
+    one_by_one = call_counts(reqs, want)
+    launches["torch_byte_server_demo"] = check_launches(
+        "torch_byte_server_demo", counts,
+        {k: served[k] + one_by_one[k] for k in KERNEL_NAMES})
+    server_s = got["seconds"]
+
+    totals = {k: sum(c.get(k, 0) for c in launches.values())
+              for k in CALLS_PER_MUL_RELIN}
+    if not all(totals.values()):
+        raise AssertionError(f"a kernel of the demos' path never ran: "
+                             f"{totals}")
+    for k, v in totals.items():
+        rows[k]["launches_examples"] = v
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(EXAMPLES_DIR, "torch_demo.py"),
+         *EXAMPLES_CLI_ARGS], capture_output=True, text=True,
+        timeout=EXAMPLES_CLI_LIMIT_S)
+    seconds["torch_demo_cli"] = time.perf_counter() - t0
+    if proc.returncode != 0 or proc.stdout.splitlines() != demo_lines:
+        raise AssertionError(f"python examples/torch_demo.py: exit "
+                             f"{proc.returncode}\n{proc.stdout}"
+                             f"{proc.stderr[-4000:]}")
+    return {"phase": "examples", "ok": True, "card": card,
+            "seconds": time.perf_counter() - t_phase,
+            "seconds_by_demo": seconds, "torch_demo_lines": demo_lines,
+            "consensus": consensus, "byte_server_run_s": server_s,
+            "byte_server_requests": len(reqs), "launches": launches}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--multi-device-rank"]:
         return multi_device_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
@@ -3235,6 +3376,7 @@ def main() -> int:
     emit(phase_multi_device(torch_app, golden, user_keys, serve_stream, rows,
                             card))
     emit(phase_hardening(torch_app, card, sanitizer_build))
+    emit(phase_examples(rows, card))
 
     print(card, flush=True)
     emit({"kernels": [rows[name] for name in KERNEL_NAMES]})

@@ -15,7 +15,7 @@ import os
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from fhe_precompiles_tpu import FheApp as JFheApp
 from fhe_precompiles_tpu import metrics as j_metrics

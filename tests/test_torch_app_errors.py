@@ -21,6 +21,8 @@ import pytest
 from fhe_precompiles_tpu import FheApp as JFheApp
 from fhe_precompiles_tpu.params import TESTNET_ONE as J_ONE
 
+pytest.importorskip("torch")
+
 from fhe_precompiles_tpu_torch import FheApp, PRECOMPILE_NAMES, pack
 from fhe_precompiles_tpu_torch.app import _CT_CODEC
 from fhe_precompiles_tpu_torch.bfv.golden import BfvContext, Ciphertext

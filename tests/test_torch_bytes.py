@@ -29,6 +29,8 @@ from fhe_precompiles_tpu.serialization import keyio as j_keyio
 from fhe_precompiles_tpu.serialization import seal as j_seal
 from fhe_precompiles_tpu.serialization import zstd_probes as j_probes
 
+pytest.importorskip("torch")
+
 from fhe_precompiles_tpu_torch import encoding, errors, pack
 from fhe_precompiles_tpu_torch.bfv.golden import Ciphertext
 from fhe_precompiles_tpu_torch.params import BENCH_N8192, PRESETS, TESTNET_ONE

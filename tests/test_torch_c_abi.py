@@ -19,7 +19,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import fhe_precompiles_tpu
 from fhe_precompiles_tpu.native import NativeFhe as JNativeFhe

@@ -7,7 +7,7 @@ model.  Exact integer arithmetic: every comparison is ``np.array_equal`` or
 """
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import jax
 import jax.numpy as jnp

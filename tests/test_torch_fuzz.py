@@ -17,6 +17,8 @@ from pathlib import Path
 
 import pytest
 
+pytest.importorskip("torch")
+
 from fhe_precompiles_tpu_torch.native import fuzz, sanitize
 from fhe_precompiles_tpu_torch.ops import build
 

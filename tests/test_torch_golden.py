@@ -13,6 +13,8 @@ from fhe_precompiles_tpu.bfv import BfvContext as JaxBfvContext
 from fhe_precompiles_tpu.bfv import Ciphertext as JaxCiphertext
 from fhe_precompiles_tpu.bfv import RelinKeys as JaxRelinKeys
 
+pytest.importorskip("torch")
+
 from fhe_precompiles_tpu_torch import params as tp
 from fhe_precompiles_tpu_torch import sampling as ts
 from fhe_precompiles_tpu_torch.bfv import BfvContext, Ciphertext

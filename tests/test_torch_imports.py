@@ -3,12 +3,13 @@ JAX package, it runs on the card unless the caller names the CPU, and a
 kernel wrapper never gives way to its plain version off the CPU.
 """
 import importlib
+import pathlib
 import pkgutil
 import subprocess
 import sys
 
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import fhe_precompiles_tpu_torch
 from fhe_precompiles_tpu_torch.ops import build, tail
@@ -23,6 +24,15 @@ def _submodules():
                                    "fhe_precompiles_tpu_torch."):
         names.append(m.name)
     return names
+
+
+def _example_files(root):
+    """The port's demos, ``examples/torch_*.py``."""
+    files = sorted((root.parent / "examples").glob("torch_*.py"))
+    assert [f.name for f in files] == ["torch_byte_server_demo.py",
+                                       "torch_consensus_demo.py",
+                                       "torch_demo.py"]
+    return files
 
 
 def test_every_submodule_is_listed():
@@ -46,10 +56,15 @@ def test_every_submodule_is_listed():
 
 
 def test_import_pulls_in_no_jax_and_no_jax_package():
+    root = pathlib.Path(fhe_precompiles_tpu_torch.__file__).parent
+    examples = [str(f) for f in _example_files(root)]
     code = (
-        "import sys, importlib\n"
+        "import sys, importlib, importlib.util\n"
         f"for name in {_submodules()!r}:\n"
         "    importlib.import_module(name)\n"
+        f"for path in {examples!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('demo', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'fhe_precompiles_tpu'\n"
         "       or m.startswith('fhe_precompiles_tpu.')]\n"
@@ -63,13 +78,13 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
 
 
 def test_sources_name_no_jax_import():
-    import pathlib
     import re
     root = pathlib.Path(fhe_precompiles_tpu_torch.__file__).parent
     # _build/ holds what is made at run time, not the package's sources
     files = [f for f in root.rglob("*.py")
              if "_build" not in f.relative_to(root).parts]
     files += [root.parent / "chip_smoke.py", root.parent / "chip_compare.py"]
+    files += _example_files(root)
     pat = re.compile(r"^\s*(import|from)\s+(jax|fhe_precompiles_tpu)(\.|\s|$)",
                      re.M)
     assert len(files) > 10
@@ -80,12 +95,12 @@ def test_sources_name_no_jax_import():
 def test_no_environment_variable_chooses_engine_or_device():
     """The caller names the engine and the device; nothing in the port reads
     the environment but the build's search for the CUDA toolkit."""
-    import pathlib
     import re
     root = pathlib.Path(fhe_precompiles_tpu_torch.__file__).parent
     files = [f for f in root.rglob("*.py")
              if "_build" not in f.relative_to(root).parts]
     files += [root.parent / "chip_smoke.py", root.parent / "chip_compare.py"]
+    files += _example_files(root)
     # the C ABI's sources too: the shim and its host read no environment
     c_files = [f for ext in ("*.cpp", "*.c", "*.h") for f in root.rglob(ext)
                if "_build" not in f.relative_to(root).parts]

@@ -23,6 +23,8 @@ from pathlib import Path
 
 import pytest
 
+pytest.importorskip("torch")
+
 from fhe_precompiles_tpu_torch import __version__, native
 from fhe_precompiles_tpu_torch.native import install as inst
 from fhe_precompiles_tpu_torch.ops import build

@@ -6,7 +6,7 @@ guarded outputs this way).  Tolerance: none, every word equal.
 """
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from fhe_precompiles_tpu_torch.bfv import BfvContext
 from fhe_precompiles_tpu_torch.ops import four_step as fs

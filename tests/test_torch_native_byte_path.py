@@ -24,7 +24,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import fhe_precompiles_tpu
 from fhe_precompiles_tpu import FheApp as JFheApp

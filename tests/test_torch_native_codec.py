@@ -26,6 +26,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+pytest.importorskip("torch")
+
 from fhe_precompiles_tpu_torch import FheApp, native, pack
 from fhe_precompiles_tpu_torch.app import (_CT_CODEC, _PK_CODEC,
                                            ENCRYPT_PRIVATE_CONSTANT)

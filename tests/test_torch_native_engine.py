@@ -29,6 +29,8 @@ from fhe_precompiles_tpu.params import BENCH_N1024 as J_N1024
 from fhe_precompiles_tpu.params import BENCH_N8192 as J_N8192
 from fhe_precompiles_tpu.params import TESTNET_ONE as J_ONE
 
+pytest.importorskip("torch")
+
 from fhe_precompiles_tpu_torch import FheApp
 from fhe_precompiles_tpu_torch.bfv.golden import (BfvContext, Ciphertext,
                                                   PublicKey, RelinKeys)

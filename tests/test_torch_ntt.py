@@ -7,7 +7,7 @@ comparison is ``np.array_equal``.
 """
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from fhe_precompiles_tpu.bfv import ntt as jax_ntt
 from fhe_precompiles_tpu.bfv.modmath import get_ntt_tables as jax_tables

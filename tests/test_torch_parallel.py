@@ -28,7 +28,7 @@ import types
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if _REPO not in sys.path:           # run as a script: the rank processes

@@ -14,6 +14,8 @@ from fhe_precompiles_tpu.seal_compat import encryptor as j_encryptor
 from fhe_precompiles_tpu.seal_compat.blake2xb import (
     _blake2b_single as j_blake2b_single, _param_words as j_param_words)
 
+pytest.importorskip("torch")
+
 from fhe_precompiles_tpu_torch import seal_compat
 from fhe_precompiles_tpu_torch.bfv.golden import BfvContext
 from fhe_precompiles_tpu_torch.encoding import PLAIN_TYPES

@@ -28,6 +28,8 @@ from fhe_precompiles_tpu.serve import BINARY_SPECS as J_BINARY_SPECS
 from fhe_precompiles_tpu.serialization import keyio as j_keyio
 from fhe_precompiles_tpu.serve import ByteServer as JByteServer
 
+pytest.importorskip("torch")
+
 from fhe_precompiles_tpu_torch import FheApp, metrics, pack
 from fhe_precompiles_tpu_torch.app import _CT_CODEC
 from fhe_precompiles_tpu_torch.bfv.golden import BfvContext, Ciphertext

@@ -22,6 +22,9 @@ import hashlib
 import threading
 
 import numpy as np
+import pytest
+
+pytest.importorskip("torch")
 
 from fhe_precompiles_tpu_torch import FheApp, pack
 from fhe_precompiles_tpu_torch.app import _CT_CODEC

@@ -5,7 +5,7 @@ Python-integer rounding, on rounding-boundary and random inputs.  Exact:
 """
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from fhe_precompiles_tpu.ops.wide import ExactScaleRound as JaxExactScaleRound
 
