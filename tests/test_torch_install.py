@@ -28,6 +28,7 @@ pytest.importorskip("torch")
 from fhe_precompiles_tpu_torch import __version__, native
 from fhe_precompiles_tpu_torch.native import install as inst
 from fhe_precompiles_tpu_torch.ops import build
+from helpers import bounded
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -134,14 +135,15 @@ def test_clean_install(tmp_path):
                            check=True).stdout.strip()
     Path(inner, "_outer.pth").write_text("\n".join(site.getsitepackages())
                                          + "\n")
-    proc = subprocess.run([str(py), "-m", "pip", "install", "--no-deps",
-                           "--no-build-isolation", "--no-index", str(src)],
-                          capture_output=True, text=True, timeout=600)
+    # the install and the check take 19 s together
+    proc = bounded.run([str(py), "-m", "pip", "install", "--no-deps",
+                        "--no-build-isolation", "--no-index", str(src)],
+                       timeout=90, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     elsewhere = tmp_path / "elsewhere"
     elsewhere.mkdir()
-    proc = subprocess.run([str(py), "-c", CLEAN_CHECK], cwd=elsewhere,
-                          capture_output=True, text=True, timeout=600)
+    proc = bounded.run([str(py), "-c", CLEAN_CHECK], timeout=90,
+                       cwd=elsewhere, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     installed = Path(inner) / "fhe_precompiles_tpu_torch"
