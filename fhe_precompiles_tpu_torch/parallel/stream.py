@@ -5,6 +5,14 @@ stream of add / sub / mul requests on size-2 ciphertexts is grouped by op
 kind, and each group runs as batches of at most ``max_batch`` through
 ``TorchEngine`` on its device.
 
+A pooled call (``run_pooled``, ``run_pooled_fused``) plans its block once
+on the host (``plan_block``: the requests grouped by op in a few numpy
+passes), uploads the plan once (the operand indices in the plan's order,
+and the relin keys where the block multiplies) from a pinned buffer without
+waiting, and waits for the card only at its end, in the stream's
+synchronize.  On a CUDA engine each such call adds one to each of
+``stream_counts``: ``plan_uploads`` and ``waits``.
+
 With a ``mesh`` (``parallel.mesh``, axes ``dp`` and ``tp``), every rank of
 the mesh calls ``run`` with the same requests.  Each batch is padded on the
 host to a multiple of dp by repeating row 0, each rank takes its dp slice
@@ -41,6 +49,7 @@ What differs from the JAX version:
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -75,13 +84,73 @@ def bucket_batch(n: int, dp: int, max_batch: int) -> int:
     return min(t, -(-max(n, max_batch) // d) * d)
 
 
-def _group_by_op(ops: Sequence[str]) -> Dict[str, List[int]]:
-    order: Dict[str, List[int]] = {}
-    for i, op in enumerate(ops):
-        if op not in OPS:
-            raise ValueError(f"unknown op {op!r}")
-        order.setdefault(op, []).append(i)
-    return order
+# each op as the four bytes of ``op + "|"``, a little-endian word: a block's
+# ops joined with "|" are read as one array of words in a single pass
+_OP_WORDS = np.array([int.from_bytes((op + "|").encode(), "little")
+                      for op in OPS], dtype=np.uint32)
+
+# what the pooled calls on a CUDA engine do: ``plan_uploads`` counts the
+# uploads of a block's plan (its operand indices and relin keys), ``waits``
+# the synchronizes that end the calls; each call adds one to each, so a
+# count above the calls made means a second upload or wait in a block
+stream_counts = {"plan_uploads": 0, "waits": 0}
+
+
+def reset_stream_counts() -> None:
+    for name in stream_counts:
+        stream_counts[name] = 0
+
+
+@dataclasses.dataclass
+class BlockPlan:
+    """A block's requests grouped by op: the groups in the order their op
+    first appears, each group's request indices ascending; group ``g`` is
+    ``ops[g]`` on ``order[starts[g]:starts[g + 1]]``."""
+    ops: Tuple[str, ...]
+    order: np.ndarray           # (R,) int64 request indices, grouped
+    starts: List[int]           # len(ops) + 1 offsets into order
+
+    def spans(self):
+        """(op, start, end) of each group in ``order``."""
+        return zip(self.ops, self.starts[:-1], self.starts[1:])
+
+    def groups(self) -> Dict[str, List[int]]:
+        return {op: self.order[s:e].tolist() for op, s, e in self.spans()}
+
+
+def _op_codes(ops: Sequence[str]) -> np.ndarray:
+    """The index into OPS of each op; ValueError names the first unknown."""
+    codes = np.full(len(ops), -1, dtype=np.int8)
+    try:
+        raw = ("|".join(ops) + "|").encode("ascii")
+    except (TypeError, UnicodeEncodeError):
+        raw = b""
+    if len(raw) == 4 * len(ops):
+        words = np.frombuffer(raw, dtype="<u4")
+        for c, w in enumerate(_OP_WORDS):
+            codes[words == w] = c
+    if len(ops) and codes.min() < 0:
+        # a word matches only an op and its separator, so a block that
+        # joins into words all known holds known ops alone
+        for op in ops:
+            if op not in OPS:
+                raise ValueError(f"unknown op {op!r}")
+    return codes
+
+
+def plan_block(ops: Sequence[str]) -> BlockPlan:
+    """Groups a block's requests by op in a few numpy passes."""
+    codes = _op_codes(ops)
+    by_code = np.argsort(codes, kind="stable")
+    ends = np.cumsum(np.bincount(codes, minlength=len(OPS))).tolist()
+    # (first request, op code, span in by_code) of each op present, in the
+    # order of the first requests
+    groups = sorted((by_code[s], c, s, e) for c, (s, e)
+                    in enumerate(zip([0] + ends[:-1], ends)) if e > s)
+    order = np.concatenate([by_code[s:e] for _, _, s, e in groups]
+                           or [by_code])
+    starts = np.cumsum([0] + [e - s for _, _, s, e in groups]).tolist()
+    return BlockPlan(tuple(OPS[c] for _, c, _, _ in groups), order, starts)
 
 
 class RequestStream:
@@ -105,14 +174,20 @@ class RequestStream:
         self.mesh = mesh
         self.shard_limbs = shard_limbs
         self.max_batch = max_batch
+        # the host side of a pooled call's one upload, grown to the largest
+        # block (pinned on a CUDA engine), and the lock that gives it to one
+        # call at a time
+        self._staging: Optional[torch.Tensor] = None
+        self._staging_lock = threading.Lock()
 
-    def _relin_keys(self, ops, pk: PublicKey) -> Optional[torch.Tensor]:
+    def _relin_keys(self, ops, pk: PublicKey,
+                    device=None) -> Optional[torch.Tensor]:
         if "mul" not in ops:
             return None
         if pk.relin is None:
             raise ValueError("mul requests need relin keys in the pk")
-        return convert.relin_keys_from_numpy(pk.relin.data,
-                                             self.engine.device)
+        return convert.relin_keys_from_numpy(
+            pk.relin.data, self.engine.device if device is None else device)
 
     def _dispatch(self, op: str, a: torch.Tensor, b: torch.Tensor,
                   rk: Optional[torch.Tensor]) -> torch.Tensor:
@@ -127,6 +202,7 @@ class RequestStream:
 
     def _sync(self) -> None:
         if self.engine.device.type == "cuda":
+            stream_counts["waits"] += 1
             torch.cuda.synchronize(self.engine.device)
 
     def _run_sharded(self, op: str, chunk: Sequence[Request],
@@ -196,7 +272,7 @@ class RequestStream:
 
     def _plan(self, requests: Sequence[Request], pk: PublicKey):
         """(the request indices by op, the relin keys on the device)."""
-        groups = _group_by_op([r.op for r in requests])
+        groups = plan_block([r.op for r in requests]).groups()
         return groups, self._relin_keys(groups, pk)
 
     def _pool(self, ct_pool) -> torch.Tensor:
@@ -205,6 +281,45 @@ class RequestStream:
         return convert.ciphertexts_from_numpy(np.asarray(ct_pool),
                                               self.engine.device)
 
+    def _stage(self, ops: Sequence[str], idx_pairs: np.ndarray,
+               pk: PublicKey):
+        """The block's plan, its operand indices on the device in the plan's
+        order ((2, R): the a rows, then the b rows) and the relin keys
+        there, all in one upload.  On a CUDA engine the words are written
+        into the stream's pinned buffer and copied with ``non_blocking``:
+        nothing waits for the card.  Reusing that buffer is safe because a
+        pooled call ends in its own synchronize, so the last call's copy
+        out of it has finished before the next call writes it."""
+        plan = plan_block(ops)
+        rk = self._relin_keys(plan.ops, pk, device="cpu")
+        idx = np.asarray(idx_pairs, dtype=np.int64).reshape(-1, 2)
+        R, nk = len(plan.order), 0 if rk is None else rk.numel()
+        dev = self.engine.device
+        if dev.type == "cuda":
+            if self._staging is None or self._staging.numel() < nk + 2 * R:
+                self._staging = torch.empty(nk + 2 * R, dtype=torch.int64,
+                                            pin_memory=True)
+            host = self._staging[:nk + 2 * R]
+        else:
+            host = torch.empty(nk + 2 * R, dtype=torch.int64)
+        words = host.numpy()
+        # the keys first: a kernel reads them from the buffer's aligned start
+        if rk is not None:
+            words[:nk] = rk.reshape(-1).numpy()
+        np.take(idx[:, 0], plan.order, out=words[nk:nk + R])
+        np.take(idx[:, 1], plan.order, out=words[nk + R:])
+        if dev.type == "cuda":
+            stream_counts["plan_uploads"] += 1
+            host = host.to(dev, non_blocking=True)
+        rows = host[nk:].view(2, R)
+        return plan, rows, None if rk is None else host[:nk].view(rk.shape)
+
+    def _batches(self, rows: torch.Tensor, start: int, end: int):
+        """(first, last + 1, a rows, b rows) of each batch of a group."""
+        for c0 in range(start, end, self.max_batch):
+            c1 = min(c0 + self.max_batch, end)
+            yield c0, c1, rows[0, c0:c1], rows[1, c0:c1]
+
     def run_pooled(self, ops: Sequence[str], idx_pairs: np.ndarray,
                    ct_pool, pk: PublicKey
                    ) -> List[Tuple[List[int], torch.Tensor]]:
@@ -212,21 +327,21 @@ class RequestStream:
         (P, 2, k, n) that is moved to the device once; the operands are
         gathered there and the results stay there.  Returns
         (request_indices, batch) pairs, one a batch of at most
-        ``max_batch``."""
+        ``max_batch``.  The block is planned and uploaded once
+        (``_stage``); the call waits for the card only at its end."""
         pool = self._pool(ct_pool)
-        order = _group_by_op(ops)
-        rk = self._relin_keys(order, pk)
-        idx = torch.as_tensor(np.asarray(idx_pairs, dtype=np.int64),
-                              device=pool.device)
-        batches = []
-        for op, idxs in order.items():
-            for c0 in range(0, len(idxs), self.max_batch):
-                chunk = idxs[c0:c0 + self.max_batch]
-                rows = idx[chunk]
-                a = pool.index_select(0, rows[:, 0])
-                b = pool.index_select(0, rows[:, 1])
-                batches.append((chunk, self._dispatch(op, a, b, rk)))
-        self._sync()
+        with self._staging_lock:
+            plan, rows, rk = self._stage(ops, idx_pairs, pk)
+            try:
+                batches = []
+                for op, s, e in plan.spans():
+                    for c0, c1, ra, rb in self._batches(rows, s, e):
+                        batches.append((plan.order[c0:c1].tolist(),
+                                        self._dispatch(
+                                            op, pool.index_select(0, ra),
+                                            pool.index_select(0, rb), rk)))
+            finally:
+                self._sync()
         return batches
 
     def run_pooled_fused(self, ops: Sequence[str], idx_pairs: np.ndarray,
@@ -239,29 +354,28 @@ class RequestStream:
         transforms, ``TorchEngine._prepare``) runs once a pooled ciphertext
         instead of once an operand."""
         pool = self._pool(ct_pool)
-        order = _group_by_op(ops)
-        rk = self._relin_keys(order, pk)
-        idx = torch.as_tensor(np.asarray(idx_pairs, dtype=np.int64),
-                              device=pool.device)
         eng = self.engine
-        out = {}
-        for op, idxs in order.items():
-            prepared = (eng._prepare(pool)
-                        if op == "mul" and pool.shape[0] <= 2 * len(idxs)
-                        else None)
-            outs = []
-            for c0 in range(0, len(idxs), self.max_batch):
-                rows = idx[idxs[c0:c0 + self.max_batch]]
-                if prepared is not None:
-                    outs.append(eng._mul_relin_prepared(
-                        prepared.index_select(0, rows[:, 0]),
-                        prepared.index_select(0, rows[:, 1]), rk))
-                else:
-                    outs.append(self._dispatch(
-                        op, pool.index_select(0, rows[:, 0]),
-                        pool.index_select(0, rows[:, 1]), rk))
-            out[op] = (idxs, torch.cat(outs))
-        self._sync()
+        with self._staging_lock:
+            plan, rows, rk = self._stage(ops, idx_pairs, pk)
+            try:
+                out = {}
+                for op, s, e in plan.spans():
+                    prepared = (eng._prepare(pool)
+                                if op == "mul" and pool.shape[0] <= 2 * (e - s)
+                                else None)
+                    outs = []
+                    for _, _, ra, rb in self._batches(rows, s, e):
+                        if prepared is not None:
+                            outs.append(eng._mul_relin_prepared(
+                                prepared.index_select(0, ra),
+                                prepared.index_select(0, rb), rk))
+                        else:
+                            outs.append(self._dispatch(
+                                op, pool.index_select(0, ra),
+                                pool.index_select(0, rb), rk))
+                    out[op] = (plan.order[s:e].tolist(), torch.cat(outs))
+            finally:
+                self._sync()
         return out
 
     def make_mixed_requests(self, cts: Sequence[Ciphertext], count: int,
