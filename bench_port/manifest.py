@@ -29,6 +29,13 @@ def workload(man: dict, name: str) -> dict:
     return _named(man["workloads"], name, "workload")
 
 
+def reported(man: dict, group: str, cell: str) -> list:
+    """The metrics of `group` ("end_to_end" or "per_layer") that `cell`
+    reports: those without a "workloads" list, and those whose list names
+    it."""
+    return [m for m in man[group] if cell in m.get("workloads", [cell])]
+
+
 def config_path(man: dict, name: str) -> Path:
     return ROOT / _named(man["configs"], name, "configuration")["file"]
 

@@ -9,7 +9,8 @@ from the root of a checkout.  Prints one JSON line last on standard output:
 metrics with ``--trace 0``, its per-layer metrics with ``--trace 1``),
 ``device``, with ``--trace 1`` ``breakdown``, and last ``checks``: each
 number compared with the reference beside its limit, which also end the
-standard error.  Exits with another code than 0, and prints no result, where
+standard error.  A metric with a ``workloads`` list is reported by those
+cells only.  Exits with another code than 0, and prints no result, where
 no CUDA device is there (or fewer than the cell asks for), where the program
 is not in the checkout, or where ``jax``, ``jaxlib``, ``flax`` or the JAX
 package is loaded once the window has closed.
@@ -101,7 +102,7 @@ def main(argv=None) -> int:
         from bench_port import trace as tracing
         obs = out.observed
         metrics = {}
-        for m in man["per_layer"]:
+        for m in manifest.reported(man, "per_layer", args.workload):
             value = manifest.load_metric(m["name"]).read(obs)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
@@ -113,7 +114,7 @@ def main(argv=None) -> int:
     else:
         result["metrics"] = {
             m["name"]: {"value": out.end_to_end[m["name"]], "unit": m["unit"]}
-            for m in man["end_to_end"]}
+            for m in manifest.reported(man, "end_to_end", args.workload)}
         result["device"] = device
     result["checks"] = check.checks_line(out.numbers)
     print(f"bench_port: {args.workload} seed {args.seed}: "

@@ -22,5 +22,6 @@ def test_a_short_run_on_the_card(card, cell):
     assert res.returncode == 0, res.stderr[-2000:]
     line = json.loads(res.stdout.strip().splitlines()[-1])
     assert line["correct"] and line["failed"] == 0
-    assert set(line["metrics"]) == {m["name"] for m in MAN["end_to_end"]}
+    assert set(line["metrics"]) == {
+        m["name"] for m in manifest.reported(MAN, "end_to_end", cell)}
     assert list(line)[-1] == "checks"

@@ -1,6 +1,7 @@
 """BENCHMARK.json against the contract's limits on names, units and
 lengths; every file it names is there and the harness finds it by name;
-every per-layer metric moves an end-to-end metric its cells report."""
+every per-layer metric moves an end-to-end metric its cells report, and a
+metric's "workloads" list names existing cells."""
 import json
 import re
 
@@ -55,8 +56,13 @@ def test_paths_and_command():
                          ids=lambda x: x if isinstance(x, str)
                          else x.get("name"))
 def test_entry_keys_names_units_text(group, entry):
-    # the harness reports every metric in every cell: no entry narrows
-    # its cells with a "workloads" key
+    # a metric may narrow the cells that report it with a "workloads" list
+    # of existing cells
+    if group in ("end_to_end", "per_layer") and "workloads" in entry:
+        cells = entry["workloads"]
+        assert cells and len(cells) == len(set(cells))
+        assert set(cells) <= {w["name"] for w in MAN["workloads"]}
+        entry = {k: v for k, v in entry.items() if k != "workloads"}
     assert set(entry) == ENTRY_KEYS[group]
     assert NAME.match(entry["name"])
     for key in ("config", "traffic"):
@@ -114,12 +120,22 @@ def test_every_file_is_there_and_found_by_name():
     assert used == {c["name"] for c in MAN["configs"]}
 
 
-def test_per_layer_moves_an_end_to_end_metric_its_cells_report():
-    reported = {e["name"] for e in MAN["end_to_end"]}
+@pytest.mark.parametrize("cell", [w["name"] for w in MAN["workloads"]])
+def test_per_layer_moves_an_end_to_end_metric_its_cells_report(cell):
+    reported = {e["name"] for e in manifest.reported(MAN, "end_to_end",
+                                                     cell)}
     assert "setup_s" in reported and len(reported) >= 2
-    assert MAN["per_layer"]
-    for m in MAN["per_layer"]:
+    layers = manifest.reported(MAN, "per_layer", cell)
+    assert layers
+    for m in layers:
         assert m["moves"] in reported and m["moves"] != "setup_s"
+
+
+def test_a_metric_with_workloads_is_reported_by_those_cells_only():
+    m = {"name": "x", "workloads": ["a"]}
+    man = {"per_layer": [m, {"name": "y"}]}
+    assert manifest.reported(man, "per_layer", "a") == man["per_layer"]
+    assert manifest.reported(man, "per_layer", "b") == [{"name": "y"}]
 
 
 def test_layers_are_named_alike():
