@@ -3,11 +3,13 @@
 A run keeps, from a sample of the window's blocks that its seed draws, the
 results of a sample of each op's requests that the seed draws too (see
 ``harness.Reservoir``).  Once the window has closed, the reference works
-each sampled request out again from the raw inputs (the two pool entries as
-sums of fresh encryptions, then the golden add, sub or multiply with
-relinearization) and counts the 64-bit words of the program's result that
-differ from it.  A result that is missing, or has another shape, counts all
-its words.  The comparison is exact: its limit is 0.
+each sampled request out again from the raw inputs (the pool entries as
+sums of fresh encryptions and, for a plain op, the plaintext pool's entry;
+then the golden add, sub, multiply with relinearization, add_plain,
+sub_plain, plain_sub or mul_plain) and counts the 64-bit words of the
+program's result that differ from it.  A result that is missing, or has
+another shape, counts all its words.  The comparison is exact: its limit is
+0.
 """
 from __future__ import annotations
 
@@ -18,8 +20,10 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from .inputs import Inputs
-from .reference.control import mul_relin_floor
+from .reference.control import (add_sub_plain_floor, mul_plain_centred,
+                                mul_relin_floor)
 from .reference.golden import Ciphertext
+from .traffic import PLAIN_OPS
 
 LIMITS = {"word_mismatches": 0}
 
@@ -29,8 +33,8 @@ class Sample:
     block: int                  # the block's position in the window
     op: str                     # the op the request asked for
     request: int                # the request's index in its block
-    a: int                      # its operands' pool indices
-    b: int
+    a: int                      # its operands' pool indices (for a plain
+    b: int                      # op, b indexes the plaintext pool)
     got: Optional[np.ndarray]   # the program's (2, k, n) uint64 result
 
 
@@ -48,7 +52,13 @@ class Reference:
         return self._entries[j]
 
     def result(self, s: Sample) -> np.ndarray:
-        ctx, a, b = self.inp.ctx, self.entry(s.a), self.entry(s.b)
+        ctx = self.inp.ctx
+        if s.op in PLAIN_OPS:
+            a, m = self.entry(s.a), self.inp.plain_pool[s.b]
+            if s.op == "plain_sub":
+                return ctx.plain_sub(m, a).data
+            return getattr(ctx, s.op)(a, m).data
+        a, b = self.entry(s.a), self.entry(s.b)
         if s.op == "add":
             return ctx.add(a, b).data
         if s.op == "sub":
@@ -58,12 +68,21 @@ class Reference:
         raise ValueError(f"unknown op {s.op!r}")
 
     def control(self, s: Sample) -> np.ndarray:
-        """The control's result: the reference with relinearization's
-        division by P rounded down (``reference/control.py``)."""
-        if s.op != "mul":
-            return self.result(s)
-        return mul_relin_floor(self.inp.ctx, self.entry(s.a),
-                               self.entry(s.b), self.inp.pk.relin).data
+        """The control's result (``reference/control.py``): the reference
+        with relinearization's division by P rounded down, the plaintext
+        scaled rounding down in add_plain, sub_plain and plain_sub, and
+        lifted centred in mul_plain; add and sub as the reference."""
+        ctx = self.inp.ctx
+        if s.op == "mul":
+            return mul_relin_floor(ctx, self.entry(s.a), self.entry(s.b),
+                                   self.inp.pk.relin).data
+        if s.op == "mul_plain":
+            return mul_plain_centred(ctx, self.entry(s.a),
+                                     self.inp.plain_pool[s.b]).data
+        if s.op in PLAIN_OPS:
+            return add_sub_plain_floor(ctx, s.op, self.entry(s.a),
+                                       self.inp.plain_pool[s.b]).data
+        return self.result(s)
 
 
 def compare(ref: Reference, samples: List[Sample],

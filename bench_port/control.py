@@ -8,7 +8,8 @@ For each seed, one process runs the cell's set-up and a short window at the
 cell's own load (``harness.run_cell``), then compares the kept results twice:
 the program's (the lower reading) and the control's in their place (the
 upper reading: ``reference/control.py``, the reference with relinearization
-rounding down).  Prints one JSON line a seed, then one with the largest
+rounding down, and a plain op's plaintext scaled rounding down or lifted
+centred).  Prints one JSON line a seed, then one with the largest
 program reading and the smallest control reading.  The benchmark's own runs
 do not run the control.
 """

@@ -8,12 +8,22 @@ on the card, and it returns after the stream's own synchronize.  Blocks are
 issued back to back, one in flight, until ``seconds`` have passed; the last
 one started runs to its end and the window with it.
 
+A mix with plain ops (``traffic.PLAIN_OPS``) is driven as
+``run_pooled_fused(ops, idx_pairs, pool, pk, plains=plain_pool)``, where
+``plain_pool`` is the (P_plain, n) int64 tensor of plaintexts on the card
+and, for a plain op, ``idx_pairs[r, 0]`` indexes ``pool`` and
+``idx_pairs[r, 1]`` ``plain_pool``; ``plain_sub`` is plaintext minus
+ciphertext.  A mix without plain ops is driven with the four arguments
+alone.  Either way the call returns
+``{op: (request indices, (m, 2, k, n) int64 tensor of results)}``.
+
 Set-up (timed from the process's start, so loading counts) makes the keys,
-the fresh encryptions and the pool from the seed, builds the engine (which
-compiles the port's kernel library in the checkout on a first run) and runs
-``HELD_BLOCKS + 1`` blocks of the cell's own shapes while holding their
-outputs, so that the allocator has what the window needs.  Every block of a
-cell has the same counts of each op, so one block covers every shape.
+the fresh encryptions, the pool and any plaintext pool from the seed, builds
+the engine (which compiles the port's kernel library in the checkout on a
+first run) and runs ``HELD_BLOCKS + 1`` blocks of the cell's own shapes
+while holding their outputs, so that the allocator has what the window
+needs.  Every block of a cell has the same counts of each op, so one block
+covers every shape.
 
 While the window runs, ``Reservoir`` keeps a sample of blocks drawn from the
 seed, and from each the results of a sample of each op's requests; the rest
@@ -36,12 +46,13 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from . import check, trace as tracing
-from .inputs import Inputs, make_inputs, pool_on_device
-from .traffic import STREAM_SAMPLE, make_blocks, rng
+from .inputs import Inputs, make_inputs, plain_pool_on_device, pool_on_device
+from .traffic import STREAM_SAMPLE, has_plain, make_blocks, rng
 
 HELD_BLOCKS = 2
 # results kept from each held block, by op
-SAMPLE = {"mul": 12, "add": 6, "sub": 4}
+SAMPLE = {"mul": 12, "add": 6, "sub": 4,
+          "mul_plain": 12, "add_plain": 6, "sub_plain": 4, "plain_sub": 4}
 TRACE_SECONDS = 1.0
 P95 = 0.95
 
@@ -119,10 +130,13 @@ def missing(out, requests: int) -> int:
 def shapes_of(inp: Inputs, traffic: dict) -> dict:
     """The sizes the roofline readers count a block's work from."""
     ctx = inp.ctx
-    return {"n": ctx.n, "k": ctx.k, "k_key": ctx.k_key,
-            "nbsk": len(ctx.Bsk), "q_moduli": list(ctx.q_mods),
-            "m_sk": ctx.m_sk, "pool": traffic["pool"],
-            "requests": traffic["requests"], "mix": dict(traffic["mix"])}
+    shapes = {"n": ctx.n, "k": ctx.k, "k_key": ctx.k_key,
+              "nbsk": len(ctx.Bsk), "q_moduli": list(ctx.q_mods),
+              "m_sk": ctx.m_sk, "pool": traffic["pool"],
+              "requests": traffic["requests"], "mix": dict(traffic["mix"])}
+    if "plain_pool" in traffic:
+        shapes["plain_pool"] = traffic["plain_pool"]
+    return shapes
 
 
 def percentile(values: List[float], q: float) -> float:
@@ -163,11 +177,14 @@ def run_cell(cfg: dict, traffic: dict, seed: int, seconds: float,
                            max_batch=cfg["max_batch"])
     phase("engine")
     pool = pool_on_device(inp, dev)
+    plains = ({"plains": plain_pool_on_device(inp, dev)}
+              if has_plain(traffic) else {})
     phase("pool")
     R = traffic["requests"]
 
     def call(block):
-        return stream.run_pooled_fused(block.ops, block.idx, pool, pk)
+        return stream.run_pooled_fused(block.ops, block.idx, pool, pk,
+                                       **plains)
 
     warm = [call(blocks[i % len(blocks)]) for i in range(HELD_BLOCKS + 1)]
     Reservoir(1, rng(seed, STREAM_SAMPLE)).offer(0, blocks[0], warm[0])
@@ -224,7 +241,7 @@ def run_cell(cfg: dict, traffic: dict, seed: int, seconds: float,
     memory_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
 
     samples = reservoir.samples()
-    del stream, pool, reservoir, call
+    del stream, pool, plains, reservoir, call
     if cuda:
         torch.cuda.empty_cache()
     ref = check.Reference(inp)

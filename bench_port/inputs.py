@@ -6,6 +6,14 @@ with exact modular sums of them: entry j is the sum of the ``TERMS`` fresh
 encryptions ``terms[j]`` names, so it decrypts to the sum of their
 plaintexts mod t.  The program receives the pool tensor and the public key's
 arrays; the reference forms the same sums itself for the entries it checks.
+
+A mix with plain ops (``traffic.PLAIN_OPS``) also has a pool of
+``plain_pool`` plaintexts on the card: each uniform mod t, from a stream of
+its own, uploaded as (P_plain, n) int64 rows as
+``convert.plaintexts_from_numpy`` lays them out.  Assumed: the five types'
+encodings (a u64 in the low coefficients, the rest 0) are sparser, but no
+op's cost on the card depends on a plaintext's values.  Keys, fresh
+encryptions and ``terms`` do not depend on the plaintext pool.
 """
 from __future__ import annotations
 
@@ -17,7 +25,7 @@ import numpy as np
 from .reference.golden import BfvContext, PublicKey, SecretKey
 from .reference.modmath import addmod
 from .reference.params import Params
-from .traffic import STREAM_PLAINS, STREAM_POOL, rng
+from .traffic import STREAM_PLAIN_POOL, STREAM_PLAINS, STREAM_POOL, rng
 
 POOL_CHUNK = 1024           # pool rows summed on the card per call
 FRESH = 32                  # fresh encryptions the pool is summed from
@@ -47,6 +55,7 @@ class Inputs:
     plains: np.ndarray          # (fresh, n) uint64 plaintexts mod t
     fresh: np.ndarray           # (fresh, 2, k, n) uint64 encryptions
     terms: np.ndarray           # (pool, terms) int64 indices into fresh
+    plain_pool: np.ndarray      # (plain_pool, n) uint64 plaintexts mod t
 
     def pool_entry(self, j: int) -> np.ndarray:
         """Pool entry j as the reference forms it: (2, k, n) uint64."""
@@ -72,7 +81,9 @@ def make_inputs(cfg: dict, traffic: dict, seed: int) -> Inputs:
     terms = rng(seed, STREAM_POOL).integers(
         0, FRESH, size=(traffic["pool"], TERMS),
         dtype=np.int64)
-    return Inputs(ctx, pk, sk, plains, fresh, terms)
+    plain_pool = rng(seed, STREAM_PLAIN_POOL).integers(
+        0, ctx.t, size=(traffic.get("plain_pool", 0), ctx.n), dtype=np.uint64)
+    return Inputs(ctx, pk, sk, plains, fresh, terms, plain_pool)
 
 
 def pool_on_device(inp: Inputs, device):
@@ -95,3 +106,9 @@ def pool_on_device(inp: Inputs, device):
             acc = torch.where(acc >= q, acc - q, acc)
         pool[r0:r0 + POOL_CHUNK] = acc
     return pool
+
+
+def plain_pool_on_device(inp: Inputs, device):
+    """The plaintext pool (P_plain, n) int64 on `device`."""
+    import torch
+    return torch.from_numpy(inp.plain_pool.view(np.int64)).to(device)

@@ -10,6 +10,8 @@ their plaintexts.
   the reference's sums and decrypt to the sums of their plaintexts, on the
   cells' configurations too; a reference product decrypts to the negacyclic
   product of its operands' plaintexts mod t.
+* Each plain op of the reference decrypts to its plaintext result, and each
+  plain op's control decrypts to the same but changes the canonical words.
 """
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ import torch
 
 from bench_port import check, manifest, traffic
 from bench_port.inputs import make_inputs, pool_on_device
+from bench_port.reference.golden import Ciphertext
 from bench_port.tests import small
 
 from fhe_precompiles_tpu_torch.bfv.golden import PublicKey, RelinKeys
@@ -94,3 +97,63 @@ def test_pool_entries_of_the_cells_configurations_decrypt(config):
         assert np.array_equal(pool[j], inp.pool_entry(j))
         ct = check.Reference(inp).entry(j)
         assert np.array_equal(inp.ctx.decrypt(ct, inp.sk), inp.pool_plain(j))
+
+
+def plain_result(op, m_a, m, t):
+    """What `op` on a ciphertext of `m_a` and the plaintext `m` decrypts
+    to."""
+    if op == "mul_plain":
+        return negacyclic(m_a, m, t)
+    a, b = m_a.astype(np.int64), m.astype(np.int64)
+    diff = {"add_plain": a + b, "sub_plain": a - b, "plain_sub": b - a}[op]
+    return (diff % t).astype(np.uint64)
+
+
+PAIRS = [(0, 0), (3, 5), (63, 15)]
+
+
+@pytest.mark.parametrize("op", traffic.PLAIN_OPS)
+def test_plain_ops_decrypt_to_their_plaintext_results(op):
+    inp = make_inputs(small.CONFIG, small.plain_mix(), seed=2 ** 31 + 23)
+    ctx, ref = inp.ctx, check.Reference(inp)
+    assert inp.plain_pool.shape == (16, ctx.n)
+    for a, b in PAIRS:
+        got = ref.result(check.Sample(0, op, 0, a, b, None))
+        assert got.shape == (2, ctx.k, ctx.n)
+        assert np.array_equal(
+            ctx.decrypt(Ciphertext(ctx.params, got), inp.sk),
+            plain_result(op, inp.pool_plain(a), inp.plain_pool[b], ctx.t))
+
+
+@pytest.mark.parametrize("op", traffic.PLAIN_OPS)
+def test_plain_controls_decrypt_the_same_and_change_the_words(op):
+    inp = make_inputs(small.CONFIG, small.plain_mix(), seed=2 ** 31 + 29)
+    ctx, ref = inp.ctx, check.Reference(inp)
+    for a, b in PAIRS[1:]:
+        s = check.Sample(0, op, 0, a, b, None)
+        want, control = ref.result(s), ref.control(s)
+        assert np.array_equal(
+            ctx.decrypt(Ciphertext(ctx.params, control), inp.sk),
+            ctx.decrypt(Ciphertext(ctx.params, want), inp.sk))
+        differ = control != want
+        if op == "mul_plain":
+            # the centred lift changes every word of the product
+            assert differ.mean() > 0.99
+        else:
+            # rounding down changes the first component where the
+            # canonical scale rounded up: about half its words
+            assert differ[0].mean() > 0.4 and not differ[1].any()
+
+
+def test_the_plain_pool_has_a_stream_of_its_own():
+    seed = 2 ** 31 + 31
+    a = make_inputs(small.CONFIG, small.plain_mix(), seed)
+    b = make_inputs(small.CONFIG, small.mix(64), seed)
+    for x, y in [(a.plains, b.plains), (a.fresh, b.fresh),
+                 (a.terms, b.terms), (a.pk.data, b.pk.data),
+                 (a.pk.relin.data, b.pk.relin.data)]:
+        assert np.array_equal(x, y)
+    assert a.plain_pool.shape == (16, a.ctx.n)
+    assert b.plain_pool.shape == (0, b.ctx.n)
+    assert a.plain_pool.max() < a.ctx.t
+    assert not (a.plain_pool[:, None] == a.plains[None]).all(-1).any()
