@@ -49,7 +49,7 @@ stages and ``ByteServer`` on dp = 4 with both codecs, every rank's result
 equal to the single-device one and its launches equal to those its
 batches imply.  The world's times are those of one card shared by four
 ranks, not a scaling figure.  Then phase hardening, the port's native
-code under checkers: the ten kernels in a process of their own
+code under checkers: the eleven kernels in a process of their own
 (``--sanitize-kernels``) at their smallest shapes, ragged row counts and
 largest n, every input and output between poisoned guard words and the
 output poisoned (two poisons), each word-equal to its plain version with
@@ -63,11 +63,14 @@ demos (``examples/torch_demo.py``, ``torch_consensus_demo.py``,
 ``torch_byte_server_demo.py``) imported and their ``main`` run on the card,
 each with the launches its calls imply, and ``torch_demo.py`` once from the
 command line.  Before all that it builds the CUDA
-kernels from ``fhe_precompiles_tpu_torch/csrc/`` and holds each of the ten
+kernels from ``fhe_precompiles_tpu_torch/csrc/`` and holds each of the eleven
 (five BEHZ tail segments, forward and inverse butterfly NTT, forward and
-inverse four-step NTT, one four-step product) against its plain PyTorch
-version on the card (``floor_sk`` also on bench.n1024 and at ragged batches,
-as it has one instance per limb-count pair), and the four-step transforms
+inverse four-step NTT, one four-step product, a pooled block's add and sub)
+against its plain PyTorch version on the card (``floor_sk`` also on
+bench.n1024 and at ragged batches, as it has one instance per limb-count
+pair; ``pooled_addsub`` at a benchmark block's add and sub groups on both
+cells' pools, its launches read from a ``run_pooled_fused`` block in phase
+main_path), and the four-step transforms
 against the butterfly kernels too (exact integer arithmetic: the tolerance
 is 0, every word must be equal).
 
@@ -136,6 +139,7 @@ from fhe_precompiles_tpu_torch.native import sanitize as sanitize_mod
 from fhe_precompiles_tpu_torch.ops import build, tail, tail_cases
 from fhe_precompiles_tpu_torch.ops import four_step as fsm
 from fhe_precompiles_tpu_torch.ops import ntt as nttm
+from fhe_precompiles_tpu_torch.ops import pooled as pooledm
 from fhe_precompiles_tpu_torch.ops.engine import TorchEngine
 from fhe_precompiles_tpu_torch.ops.modmath import csub_reduce
 from fhe_precompiles_tpu_torch.parallel import (RequestStream, make_mesh,
@@ -155,6 +159,12 @@ from fhe_precompiles_tpu_torch.serve import (BINARY_SPECS, FALLBACK_REASONS,
                                              POOL_COUNTERS, ByteServer)
 
 BATCH = 128          # the main path's batch
+# a 10,000-request block of the cells one.block10k.distinct and .shared
+# (bench_port/traffic/): its add and sub groups, and the two cells' pools
+POOLED_GROUPS = (("add", 4500), ("sub", 1000))
+POOLED_POOLS = (10240, 256)
+# the requests of the pooled block that phase main_path serves
+POOLED_BLOCK = {"add": 45, "sub": 10, "mul": 45}
 DISTINCT = 8         # distinct ciphertexts, tiled up to BATCH
 SWEEP = (1, 16, 32, 64, 256, 512)   # other batch sizes timed beside BATCH
 SEED = 20240607
@@ -258,6 +268,7 @@ CSRC = "fhe_precompiles_tpu_torch/csrc/"
 SOURCES = {name: CSRC + "tail.cu" for name in tail.KERNEL_NAMES}
 SOURCES.update({name: CSRC + "ntt.cu" for name in nttm.KERNEL_NAMES})
 SOURCES.update({name: CSRC + "four_step.cu" for name in fsm.KERNEL_NAMES})
+SOURCES.update({name: CSRC + "pooled.cu" for name in pooledm.KERNEL_NAMES})
 REPLACES = {
     "to_bsk_ext": "fhe_precompiles_tpu/ops/pallas_tail.py:147",
     "dyadic": "fhe_precompiles_tpu/ops/pallas_tail.py:214",
@@ -269,18 +280,22 @@ REPLACES = {
     "four_step_ntt": "fhe_precompiles_tpu/ops/pallas_ntt.py:239",
     "four_step_intt": "fhe_precompiles_tpu/ops/pallas_ntt.py:279",
     "four_step_phase": "fhe_precompiles_tpu/ops/pallas_ntt.py:184",
+    "pooled_addsub": "fhe_precompiles_tpu/parallel/stream.py:172",
 }
-KERNEL_NAMES = tail.KERNEL_NAMES + nttm.KERNEL_NAMES + fsm.KERNEL_NAMES
+KERNEL_NAMES = (tail.KERNEL_NAMES + nttm.KERNEL_NAMES + fsm.KERNEL_NAMES
+                + pooledm.KERNEL_NAMES)
 
 
 def reset_launch_counts() -> None:
     tail.reset_launch_counts()
     nttm.reset_launch_counts()
     fsm.reset_launch_counts()
+    pooledm.reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    return {**tail.launch_counts, **nttm.launch_counts, **fsm.launch_counts}
+    return {**tail.launch_counts, **nttm.launch_counts, **fsm.launch_counts,
+            **pooledm.launch_counts}
 
 
 def expected_counts(calls: dict) -> dict:
@@ -760,12 +775,70 @@ def four_step_work(name: str, x: torch.Tensor, tb: fsm.MxuNttTables):
                         + SHOUP40_FMAS))
 
 
+def pooled_kernel_checks(eng: TorchEngine, rng, rows: dict,
+                         checks: dict) -> None:
+    """``pooled_addsub`` against its plain version on the card at a
+    benchmark block's add and sub groups (``POOLED_GROUPS``), on each cell's
+    pool of uniform residues (``POOLED_POOLS``; operands drawn uniformly,
+    the pool's last row among them), and the groups timed together: the row
+    of the last ``kernels`` line at the first pool, each pool's time in its
+    case.  Bound by bytes: each request reads two rows of 2 k n words and
+    its two indices, and writes one row."""
+    name, q, n = "pooled_addsub", eng.golden.q_mods, eng.golden.n
+
+    def kern(pool, *idx_q):
+        return tuple(pooledm.pooled_addsub(pool, idx_q[2 * g],
+                                           idx_q[2 * g + 1], idx_q[-1],
+                                           op == "sub")
+                     for g, (op, _) in enumerate(POOLED_GROUPS))
+
+    def plain(pool, *idx_q):
+        return tuple(pooledm.pooled_addsub_plain(pool, idx_q[2 * g],
+                                                 idx_q[2 * g + 1], idx_q[-1],
+                                                 op == "sub")
+                     for g, (op, _) in enumerate(POOLED_GROUPS))
+
+    nbytes = sum(8 * M * (3 * 2 * len(q) * n + 2) for _, M in POOLED_GROUPS)
+    max_err = 0
+    for P in POOLED_POOLS:
+        pool = torch.from_numpy(
+            rand_rows(rng, (P, 2), q, n).view(np.int64)).cuda()
+        idx = []
+        for _, M in POOLED_GROUPS:
+            ia, ib = rng.integers(0, P, size=(2, M))
+            ia[-1] = P - 1
+            idx += [torch.from_numpy(ia).cuda(), torch.from_numpy(ib).cuda()]
+        inputs = (pool, *idx)
+        case = {"case": f"testnet.one q, P = {P}, "
+                + ", ".join(f"{op} M = {M}" for op, M in POOLED_GROUPS),
+                "mismatches": 0}
+        for got, want in zip(kern(*inputs, q), plain(*inputs, q)):
+            mism, err = mismatch(got, want)
+            case["mismatches"] += mism
+            max_err = max(max_err, err)
+        if name not in rows:       # the first pool: the kernels line's row
+            rows[name], terms = timed_row(name, kern, plain, inputs, q,
+                                          nbytes, 0, 0)
+            checks[name] = {"name": name, "mismatches": 0, "cases": [],
+                            **terms}
+            case["ms"] = rows[name]["ms"]
+        else:
+            case["ms"] = cold_ms(kern, inputs, q)
+        case["same_buffers_ms"] = cuda_ms(lambda i: kern(*inputs, q))
+        case["bytes_bound_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+        checks[name]["mismatches"] += case["mismatches"]
+        checks[name]["cases"].append(case)
+        del pool, idx, inputs
+    rows[name]["max_abs_err"] = max_err
+
+
 def phase_kernels(eng: TorchEngine, eng4: TorchEngine, rng):
     """Kernel against plain version on the card.  The tail kernels at the
     main path's shapes on testnet.one and at a small batch on bench.n8192
     (other limb counts), floor_sk also at ``floor_sk_cases``; the NTT
     kernels at every shape of ``ntt_cases``, and there and back again
-    (``intt(ntt(x)) == x``).  Returns the rows of the last ``kernels`` line
+    (``intt(ntt(x)) == x``); ``pooled_addsub`` at a benchmark block's add
+    and sub groups (``pooled_kernel_checks``).  Returns the rows of the last ``kernels`` line
     and, per kernel, the comparison's counts with the two terms of the
     bound."""
     ctx8 = BfvContext(BENCH_N8192)
@@ -832,6 +905,7 @@ def phase_kernels(eng: TorchEngine, eng4: TorchEngine, rng):
     for name in nttm.KERNEL_NAMES:
         rows[name]["max_abs_err"] = checks[name].pop("max_abs_err")
     four_step_kernel_checks(eng4, eng, rng, rows, checks)
+    pooled_kernel_checks(eng, rng, rows, checks)
     return rows, checks
 
 
@@ -884,11 +958,45 @@ def phase_main_path(eng: TorchEngine, rows: dict, keys) -> dict:
         raise AssertionError(f"launch counts {counts}, expected {expected}")
     for name in CALLS_PER_MUL_RELIN:
         rows[name]["launches"] = counts[name]
+    block = pooled_block(eng, pk, cts)
+    for name in pooledm.KERNEL_NAMES:
+        rows[name]["launches"] = block["launches"][name]
     return {"phase": "main_path", "ok": True, "preset": "testnet.one",
             "batch": BATCH, "distinct_pairs_checked": DISTINCT,
             "rows_equal_to_golden": BATCH, "decrypt_ok": True,
-            "launches": counts, "output_device": str(out.device),
+            "launches": counts, "pooled_block": block,
+            "output_device": str(out.device),
             "inputs": (a, b, rk), "host_cts": cts}
+
+
+def pooled_block(eng: TorchEngine, pk, cts) -> dict:
+    """One block of ``POOLED_BLOCK`` requests, shuffled, on the pool of
+    `cts` through ``RequestStream.run_pooled_fused`` on the card (the
+    benchmark's path), the launch counts reset just before it: one
+    ``pooled_addsub`` an add or sub group, and every result equal to the
+    same block on the CPU engine."""
+    rng = np.random.default_rng(SEED + 2)
+    ops = [op for op, m in POOLED_BLOCK.items() for _ in range(m)]
+    ops = [ops[i] for i in rng.permutation(len(ops))]
+    idx = rng.integers(0, len(cts), size=(len(ops), 2))
+    pool = np.stack([c.data for c in cts])
+    reset_launch_counts()
+    got = RequestStream(eng).run_pooled_fused(ops, idx, pool, pk)
+    counts = launch_counts()
+    groups = sum(op != "mul" for op in got)
+    if counts["pooled_addsub"] != groups:
+        raise AssertionError(f"pooled block: {counts['pooled_addsub']} "
+                             f"pooled_addsub launches, {groups} add and "
+                             "sub groups")
+    want = RequestStream(TorchEngine(eng.params, device="cpu")
+                         ).run_pooled_fused(ops, idx, pool, pk)
+    for op, (ids, res) in got.items():
+        if ids != want[op][0] or not torch.equal(res.cpu(), want[op][1]):
+            raise AssertionError(f"pooled block: the {op} results differ "
+                                 "from the CPU engine's")
+    return {"requests": len(ops), "pool": len(cts),
+            "groups": {op: len(ids) for op, (ids, _) in got.items()},
+            "equal_to_cpu_engine": True, "launches": counts}
 
 
 def check_mul_relin(eng: TorchEngine, out: torch.Tensor, single: Ciphertext,
@@ -2942,11 +3050,43 @@ def ragged_batch(rows_a_block: int, limbs: int) -> int:
     return next(b for b in range(2, 64) if (b * limbs) % rows_a_block)
 
 
+def pooled_cases(rng) -> list:
+    """``pooled_addsub``, both ops, on testnet.one's primes: one request
+    on a pool of one, 3 and 1,023 requests that read the pool's last row,
+    a row of n = 256 that leaves a partial block, 65,537 requests of n = 8
+    (more rows than a grid dimension holds).  The pool rows no request
+    names hold words of all ones, which no result can hold: a read of one
+    shows as a word that differs from the plain version."""
+    q = TESTNET_ONE.coeff_modulus[:-1]
+    cases = []
+    for M, P, n in ((1, 1, 4096), (3, 8, 4096), (1023, 1024, 4096),
+                    (5, 16, 256), (65537, 64, 8)):
+        ia = rng.integers(0, P, size=M)
+        ib = rng.integers(0, P, size=M)
+        ia[-1] = P - 1
+        pool = np.full((P, 2, len(q), n), -1, dtype=np.int64)
+        used = np.union1d(ia, ib)
+        pool[used] = rand_rows(rng, (len(used), 2), q, n).view(np.int64)
+        bases = [torch.from_numpy(pool).cuda(), torch.from_numpy(ia).cuda(),
+                 torch.from_numpy(ib).cuda()]
+        for sub in (False, True):
+            cases.append((
+                "pooled_addsub", f"testnet.one q, {'sub' if sub else 'add'}"
+                f", M = {M}, P = {P}, n = {n}",
+                lambda p, a, b, sub=sub, **kw: pooledm.pooled_addsub(
+                    p, a, b, q, sub, **kw),
+                lambda p, a, b, sub=sub: pooledm.pooled_addsub_plain(
+                    p, a, b, q, sub),
+                bases, [lambda t: t] * 3))
+    return cases
+
+
 def hardening_kernel_cases(rng) -> list:
-    """The ten kernels at their smallest shape, a ragged row count that
-    leaves a partial last block, and their largest n: (kernel, label,
-    wrapper, plain version, base tensors, views), the wrapper and the plain
-    version taking the views."""
+    """The eleven kernels at their smallest shape, a ragged row count that
+    leaves a partial last block, and their largest n (``pooled_addsub``:
+    ``pooled_cases``): (kernel, label, wrapper, plain version, base
+    tensors, views), the wrapper and the plain version taking the
+    views."""
     def same(t):
         return t
 
@@ -3035,7 +3175,7 @@ def hardening_kernel_cases(rng) -> list:
                     f"{B} ({B * L} rows, {rpb} a block)",
                     bound(fsm.phase, *args), bound(fsm.phase_plain, *args),
                     [m], [same]))
-    return cases
+    return cases + pooled_cases(rng)
 
 
 def sanitize_kernels() -> int:
@@ -3101,7 +3241,7 @@ def phase_hardening(torch_app: FheApp, card: str, sanitizer_build) -> dict:
     """The port's native code under checkers.
 
     Kernels: ``--sanitize-kernels`` in a process of its own, each of the
-    ten kernels at its smallest shape, a ragged row count and its largest
+    eleven kernels at its smallest shape, a ragged row count and its largest
     n, every buffer between poisoned guards, the output poisoned, two
     poisons: equal to the plain version word for word, no guard or input
     written.  Then the coverage fuzzer (ASan + UBSan)

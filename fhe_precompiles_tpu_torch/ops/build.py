@@ -159,6 +159,13 @@ def _set_argtypes(lib) -> None:
     lib.fhe_four_step_phase.restype = i
     lib.fhe_four_step_phase_fit.argtypes = [i, i, ctypes.POINTER(i)]
     lib.fhe_four_step_phase_fit.restype = None
+    # pooled.cu: pool, ia, ib, out, rows, pool rows, k, n, moduli (host),
+    # sub, stream
+    lib.fhe_pooled_max_k.argtypes = []
+    lib.fhe_pooled_max_k.restype = i
+    lib.fhe_pooled_addsub.argtypes = [vp, vp, vp, vp, ll, ll, i, i,
+                                      ctypes.POINTER(ctypes.c_uint64), i, vp]
+    lib.fhe_pooled_addsub.restype = i
 
 
 def load_library(verbose: bool = False):

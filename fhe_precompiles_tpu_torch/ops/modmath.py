@@ -7,9 +7,12 @@ read the same storage as ``unsigned long long``.  numpy ``uint64`` arrays
 cross over with ``.view(np.int64)`` (see ``convert.py``).
 
 This is the plain arithmetic behind the plain versions of the kernels and the
-engine's elementwise operations.  It may use ``%``; the division-free forms (Shoup, Barrett) live in
-``csrc/modmath.cuh``, and the host-side helpers that compute their constants
-are here.
+engine's elementwise operations.  ``addmod`` / ``submod`` run on the card
+for ``TorchEngine._add`` / ``_sub``; a pooled block's add and sub groups
+(``RequestStream.run_pooled_fused``) run in the kernel of ``ops/pooled.py``
+instead, whose plain version is these two.  It may use ``%``; the
+division-free forms (Shoup, Barrett) live in ``csrc/modmath.cuh``, and the
+host-side helpers that compute their constants are here.
 
 Moduli broadcast: ``p`` may be a Python int or a tensor shaped to broadcast
 over the data, e.g. ``(L, 1)`` for one op across all RNS limbs.

@@ -7,11 +7,18 @@ kind, and each group runs as batches of at most ``max_batch`` through
 
 A pooled call (``run_pooled``, ``run_pooled_fused``) plans its block once
 on the host (``plan_block``: the requests grouped by op in a few numpy
-passes), uploads the plan once (the operand indices in the plan's order,
-and the relin keys where the block multiplies) from a pinned buffer without
+passes), checks that every operand index lies in the pool (an
+``IndexError`` naming the request, before anything goes to the device),
+uploads the plan once (the operand indices in the plan's order, and the
+relin keys where the block multiplies) from a pinned buffer without
 waiting, and waits for the card only at its end, in the stream's
 synchronize.  On a CUDA engine each such call adds one to each of
-``stream_counts``: ``plan_uploads`` and ``waits``.
+``stream_counts``: ``plan_uploads`` and ``waits``.  Add and sub read their
+operands from the pool by index (``ops/pooled.py`` ``pooled_addsub``: one
+kernel launch on the card), in ``run_pooled_fused`` once for the whole
+group on the card and a batch at a time on the CPU; a multiply gathers its
+operands (``index_select``), and ``max_batch`` cuts its group into batches
+that are concatenated.
 
 With a ``mesh`` (``parallel.mesh``, axes ``dp`` and ``tp``), every rank of
 the mesh calls ``run`` with the same requests.  Each batch is padded on the
@@ -59,6 +66,7 @@ from .. import convert
 from ..bfv.golden import Ciphertext, PublicKey
 from ..ops.engine import TorchEngine
 from ..ops.modmath import addmod, submod
+from ..ops.pooled import pooled_addsub
 from .mesh import (Mesh, all_gather_axis, checked, gather_ct_batch,
                    limb_range, same_device, shard_ct_batch)
 
@@ -277,23 +285,34 @@ class RequestStream:
 
     def _pool(self, ct_pool) -> torch.Tensor:
         if isinstance(ct_pool, torch.Tensor):
-            return ct_pool.to(self.engine.device)
+            return ct_pool.to(self.engine.device).contiguous()
         return convert.ciphertexts_from_numpy(np.asarray(ct_pool),
                                               self.engine.device)
 
     def _stage(self, ops: Sequence[str], idx_pairs: np.ndarray,
-               pk: PublicKey):
+               pk: PublicKey, pool_rows: int):
         """The block's plan, its operand indices on the device in the plan's
         order ((2, R): the a rows, then the b rows) and the relin keys
-        there, all in one upload.  On a CUDA engine the words are written
-        into the stream's pinned buffer and copied with ``non_blocking``:
-        nothing waits for the card.  Reusing that buffer is safe because a
-        pooled call ends in its own synchronize, so the last call's copy
-        out of it has finished before the next call writes it."""
+        there, all in one upload.  An index outside [0, pool_rows) raises
+        ``IndexError`` naming its request, before the upload: the kernels
+        that read by index must not read outside the pool.  On a CUDA
+        engine the words are written into the stream's pinned buffer and
+        copied with ``non_blocking``: nothing waits for the card.  Reusing
+        that buffer is safe because a pooled call ends in its own
+        synchronize, so the last call's copy out of it has finished before
+        the next call writes it."""
         plan = plan_block(ops)
-        rk = self._relin_keys(plan.ops, pk, device="cpu")
         idx = np.asarray(idx_pairs, dtype=np.int64).reshape(-1, 2)
-        R, nk = len(plan.order), 0 if rk is None else rk.numel()
+        R = len(plan.order)
+        used = idx[:R]
+        if R and (used.min() < 0 or used.max() >= pool_rows):
+            r = int(np.flatnonzero(((used < 0) | (used >= pool_rows))
+                                   .any(axis=1))[0])
+            raise IndexError(f"request {r}: operand indices "
+                             f"{used[r].tolist()} outside the pool of "
+                             f"{pool_rows} ciphertexts")
+        rk = self._relin_keys(plan.ops, pk, device="cpu")
+        nk = 0 if rk is None else rk.numel()
         dev = self.engine.device
         if dev.type == "cuda":
             if self._staging is None or self._staging.numel() < nk + 2 * R:
@@ -314,10 +333,13 @@ class RequestStream:
         rows = host[nk:].view(2, R)
         return plan, rows, None if rk is None else host[:nk].view(rk.shape)
 
-    def _batches(self, rows: torch.Tensor, start: int, end: int):
-        """(first, last + 1, a rows, b rows) of each batch of a group."""
-        for c0 in range(start, end, self.max_batch):
-            c1 = min(c0 + self.max_batch, end)
+    def _batches(self, rows: torch.Tensor, start: int, end: int,
+                 size: Optional[int] = None):
+        """(first, last + 1, a rows, b rows) of each batch of a group, of at
+        most `size` requests (by default ``max_batch``)."""
+        size = size or self.max_batch
+        for c0 in range(start, end, size):
+            c1 = min(c0 + size, end)
             yield c0, c1, rows[0, c0:c1], rows[1, c0:c1]
 
     def run_pooled(self, ops: Sequence[str], idx_pairs: np.ndarray,
@@ -325,21 +347,24 @@ class RequestStream:
                    ) -> List[Tuple[List[int], torch.Tensor]]:
         """Requests name operands by their index into a pool of ciphertexts
         (P, 2, k, n) that is moved to the device once; the operands are
-        gathered there and the results stay there.  Returns
+        read there and the results stay there.  Returns
         (request_indices, batch) pairs, one a batch of at most
         ``max_batch``.  The block is planned and uploaded once
         (``_stage``); the call waits for the card only at its end."""
         pool = self._pool(ct_pool)
         with self._staging_lock:
-            plan, rows, rk = self._stage(ops, idx_pairs, pk)
+            plan, rows, rk = self._stage(ops, idx_pairs, pk, pool.shape[0])
             try:
                 batches = []
                 for op, s, e in plan.spans():
                     for c0, c1, ra, rb in self._batches(rows, s, e):
-                        batches.append((plan.order[c0:c1].tolist(),
-                                        self._dispatch(
-                                            op, pool.index_select(0, ra),
-                                            pool.index_select(0, rb), rk)))
+                        res = (pooled_addsub(pool, ra, rb,
+                                             self.engine.golden.q_mods,
+                                             op == "sub")
+                               if op != "mul" else self._dispatch(
+                                   op, pool.index_select(0, ra),
+                                   pool.index_select(0, rb), rk))
+                        batches.append((plan.order[c0:c1].tolist(), res))
             finally:
                 self._sync()
         return batches
@@ -348,32 +373,42 @@ class RequestStream:
                          ct_pool, pk: PublicKey
                          ) -> Dict[str, Tuple[List[int], torch.Tensor]]:
         """Like ``run_pooled``, but returns one array a kind:
-        {op: (request_indices, (M, 2, k, n) results)}.  When the pool holds
-        at most two ciphertexts a multiply (P <= 2 M), the
+        {op: (request_indices, (M, 2, k, n) results)}.  On the card an add
+        or sub group is one ``pooled_addsub`` over the whole group, written
+        straight into its result, and ``max_batch`` cuts the multiplies
+        alone; on the CPU it cuts every group.  When the pool
+        holds at most two ciphertexts a multiply (P <= 2 M), the
         operand-independent half of the multiply (Bsk lift and forward
         transforms, ``TorchEngine._prepare``) runs once a pooled ciphertext
         instead of once an operand."""
         pool = self._pool(ct_pool)
         eng = self.engine
         with self._staging_lock:
-            plan, rows, rk = self._stage(ops, idx_pairs, pk)
+            plan, rows, rk = self._stage(ops, idx_pairs, pk, pool.shape[0])
             try:
                 out = {}
                 for op, s, e in plan.spans():
-                    prepared = (eng._prepare(pool)
-                                if op == "mul" and pool.shape[0] <= 2 * (e - s)
-                                else None)
-                    outs = []
-                    for _, _, ra, rb in self._batches(rows, s, e):
-                        if prepared is not None:
-                            outs.append(eng._mul_relin_prepared(
+                    if op != "mul":
+                        # one launch a group on the card, whose kernel holds
+                        # no intermediates; the CPU's plain version builds
+                        # its gathers and temporaries a batch at a time
+                        res = pool.new_empty((e - s, *pool.shape[1:]))
+                        for c0, c1, ra, rb in self._batches(
+                                rows, s, e, e - s if pool.is_cuda else None):
+                            pooled_addsub(pool, ra, rb, eng.golden.q_mods,
+                                          op == "sub", out=res[c0 - s:c1 - s])
+                    else:
+                        prepared = (eng._prepare(pool)
+                                    if pool.shape[0] <= 2 * (e - s) else None)
+                        res = torch.cat([
+                            eng._mul_relin_prepared(
                                 prepared.index_select(0, ra),
-                                prepared.index_select(0, rb), rk))
-                        else:
-                            outs.append(self._dispatch(
-                                op, pool.index_select(0, ra),
-                                pool.index_select(0, rb), rk))
-                    out[op] = (plan.order[s:e].tolist(), torch.cat(outs))
+                                prepared.index_select(0, rb), rk)
+                            if prepared is not None
+                            else self._dispatch(op, pool.index_select(0, ra),
+                                                pool.index_select(0, rb), rk)
+                            for _, _, ra, rb in self._batches(rows, s, e)])
+                    out[op] = (plan.order[s:e].tolist(), res)
             finally:
                 self._sync()
         return out

@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 from fhe_precompiles_tpu_torch.bfv import BfvContext
 from fhe_precompiles_tpu_torch.ops import four_step as fs
 from fhe_precompiles_tpu_torch.ops import ntt as tn
+from fhe_precompiles_tpu_torch.ops import pooled
 from fhe_precompiles_tpu_torch.ops import tail
 from fhe_precompiles_tpu_torch.params import TESTNET_ONE
 
@@ -19,7 +20,7 @@ torch.set_num_threads(1)
 MODS = (0xFFFFEE001, 0xFFFFC4001, 0x1FFFFE0001)     # tests/test_pallas_ntt.py
 WRAPPERS = ("to_bsk_ext", "dyadic", "floor_sk", "relin_dot", "mod_down",
             "ntt", "intt", "four_step_ntt", "four_step_intt",
-            "four_step_phase")
+            "four_step_phase", "pooled_addsub")
 
 
 def _rand(rng, lead, mods, n):
@@ -53,6 +54,8 @@ def calls():
     w = _rand(rng, (), MODS, K * K).numpy().view(np.uint64)
     packed = torch.from_numpy(fs.pack_wgmma(np.stack(
         [fs._digits(wl.reshape(K, K)) for wl in w])))
+    pool = _rand(rng, (5, 2), g.q_mods, n)
+    ia, ib = torch.tensor([4, 0, 4]), torch.tensor([1, 4, 4])
     return {
         "to_bsk_ext": lambda out: tail.to_bsk_ext(a, c, out=out),
         "dyadic": lambda out: tail.dyadic(fa, fb, c, out=out),
@@ -64,7 +67,9 @@ def calls():
         "four_step_ntt": lambda out: fs.ntt(x, ftb, out=out),
         "four_step_intt": lambda out: fs.intt(x, ftb, out=out),
         "four_step_phase": lambda out: fs.phase(m, packed, grid, "pre", ftb,
-                                                out=out)}
+                                                out=out),
+        "pooled_addsub": lambda out: pooled.pooled_addsub(
+            pool, ia, ib, g.q_mods, True, out=out)}
 
 
 @pytest.mark.parametrize("name", WRAPPERS)

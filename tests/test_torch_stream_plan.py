@@ -9,8 +9,9 @@ one.  CPU cases run testnet.one's primes and t at n = 256.
 
 The test marked ``card`` runs one block of 10,000 requests on the card
 under ``torch.cuda.set_sync_debug_mode("error")`` until the call's final
-synchronize, reads ``stream_counts`` and holds the results to the same
-block on the CPU engine; it skips without a CUDA device.  It imports no JAX,
+synchronize, reads ``stream_counts`` and the launches of ``pooled_addsub``
+(one an add or sub group) and holds the results to the same block on the
+CPU engine; it skips without a CUDA device.  It imports no JAX,
 so it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_stream_plan.py
@@ -23,6 +24,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from fhe_precompiles_tpu_torch.bfv.golden import BfvContext, Ciphertext
+from fhe_precompiles_tpu_torch.ops import pooled
 from fhe_precompiles_tpu_torch.ops.engine import TorchEngine
 from fhe_precompiles_tpu_torch.params import TESTNET_ONE, Params
 from fhe_precompiles_tpu_torch.parallel.stream import (
@@ -179,12 +181,14 @@ def test_a_block_on_the_card_waits_only_at_its_end(card, pool_size):
 
     stream._sync = final_sync
     reset_stream_counts()
+    pooled.reset_launch_counts()
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = stream.run_pooled_fused(ops, idx, pool, pk)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert stream_counts == {"plan_uploads": 1, "waits": 1}
+    assert pooled.launch_counts == {"pooled_addsub": 2}   # add, sub groups
 
     want = RequestStream(TorchEngine(TESTNET_ONE, device="cpu")
                          ).run_pooled_fused(ops, idx, host_pool, pk)
